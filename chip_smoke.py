@@ -17,15 +17,30 @@ Phases, one or two lines each on stdout:
 5. the same at its large-p point, 100 samples x 100,000 features;
 6. a small mixed fit (2,000 x 200 with 40 integer-valued columns), and
    MultiSURF and MultiSURF* on a 37 x 19 mixed input against the numpy
-   oracle of the reference's semantics in ``tests/oracles.py``.
+   oracle of the reference's semantics in ``tests/oracles.py``;
+7. the SNP headline: ``MultiSURF().fit`` on 16,384 x 65,536 int8
+   genotypes, through the integer fast path and the symmetric tier of the
+   all-discrete engine (int8 GEMMs), timed first and warm, with the
+   engine's int8 rate and peak memory;
+8. the engine's other tiers: v1 (ReliefF, 3,000 x 5,000, 3 classes), the
+   v2 block loop (MultiSURF*, 30,000 x 2,048) and v2-sym again (SURF,
+   8,192 x 16,384 float input, encoded on the card);
+9. SURF and ReliefF on continuous data (10,000 x 100), ReliefF at
+   50,000 x 100, and SURF, SURF* and ReliefF against ``tests/oracles.py``
+   on the small mixed inputs of ``tests/test_surf.py`` and
+   ``tests/test_relieff.py``.
 
-Phases 4-6 are the main path: every kernel launch count is set to 0 before
-them and read after them, and each kernel must have been launched there.
-Each fit is held against the same engine run on the card with the plain
-PyTorch passes.  Any failed check raises, so the script exits non-zero; it
-also fails when no CUDA device is present.  The line before the last is a
-JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+Phases 4-6 are the main path of the four kernels: every kernel launch
+count is set to 0 before them and read after them, and each kernel must
+have been launched there.  Each fit there and in phase 9 is held against
+the same engine run on the card with the plain PyTorch passes.  Phases 7
+and 8 are the all-discrete path: the GEMM operation count is set to 0
+before each fit and read after it, no fused kernel may launch in it, and
+each fit is held against the fused engine with the ``MIXED`` kernels on
+the same data as float32, the route all-discrete data took before.  Any
+failed check raises, so the script exits non-zero; it also fails when no
+CUDA device is present.  The line before the last is a JSON summary of
+the kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -40,8 +55,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from fastselect_tpu_torch import MultiSURF, _build
+from fastselect_tpu_torch import MultiSURF, ReliefF, SURF, _build
 from fastselect_tpu_torch.ops import relief_cuda as rc
+from fastselect_tpu_torch.ops import relief_discrete as rd
 from fastselect_tpu_torch.utils.preprocessing import analyze_features
 
 # Kernel name -> (source, Pallas kernel it replaces)
@@ -59,6 +75,9 @@ D_ATOL = 1e-4        # pass 1 against its plain version (expected: 0)
 SCORE_RTOL = 1e-3    # pass 2 against its plain version, relative to max|s|
 FIT_ATOL = 1e-4      # fitted scores against the plain-pass engine
 ORACLE_ATOL = 2e-6   # against tests/oracles.py, as tests/test_multisurf.py
+ORACLE_ATOL_SR = 5e-6  # as tests/test_surf.py and tests/test_relieff.py
+INT8_PEAK_TOPS = 1979.0  # H100 SXM dense int8, NVIDIA's data sheet
+ALGO = {"MultiSURF": "multisurf", "SURF": "surf", "ReliefF": "relieff"}
 
 
 # ---------------------------------------------------------------------------
@@ -184,18 +203,45 @@ def random_inputs(dev, n, p, n_disc, seed):
     return t(x), t(recip), t(disc)
 
 
-def fit_phase(dev, label, X, y, must_launch, n_select=10):
-    """Fit through the estimator, check that it launched the kernels named
-    in must_launch, then hold it against the plain-pass engine on the
-    card.  Returns the fitted estimator and the fit's seconds."""
-    plan = rc.block_plan(X.shape[0], X.shape[1], dev)
-    before = dict(rc.launches)
+def fit_tol(ref):
+    """FIT_ATOL, relative to the largest score where that exceeds 1: SURF's
+    unit weights make its scores grow with n."""
+    return FIT_ATOL * max(1.0, float(np.abs(ref).max()))
+
+
+def engine_args(est, y_enc):
+    """The engine arguments the estimator's fit passes for labels y_enc."""
+    kw = dict(algo=ALGO[type(est).__name__],
+              use_star=getattr(est, "use_star", False))
+    if kw["algo"] == "relieff":
+        kw.update(n_neighbors=est.n_neighbors,
+                  class_probs=(np.bincount(y_enc) / len(y_enc)).astype(
+                      np.float32))
+    return kw
+
+
+def timed_fit(dev, est, X, y):
+    """(fitted est, seconds, peak device GB) of one fit on the card."""
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    est = MultiSURF(n_features_to_select=n_select).fit(X, y)
-    fit_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    est.fit(X, y)
+    torch.cuda.synchronize()
+    return (est, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def fit_phase(dev, label, X, y, must_launch, n_select=10, make=MultiSURF,
+              **params):
+    """Fit through the estimator, check that it launched the kernels named
+    in must_launch, then hold it against the plain-pass engine on the
+    card.  Returns the fitted estimator and the fit's seconds."""
+    est = make(n_features_to_select=n_select, **params)
+    y_enc = np.unique(y, return_inverse=True)[1]
+    kw = engine_args(est, y_enc)
+    plan = rc.block_plan(X.shape[0], X.shape[1], dev, kw["algo"])
+    before = dict(rc.launches)
+    est, fit_s, peak_gb = timed_fit(dev, est, X, y)
     moved = {k: rc.launches[k] - before[k] for k in rc.launches}
     s = est.feature_importances_
     check(est.effective_backend_ == "cuda", f"{label}: effective_backend_")
@@ -203,37 +249,41 @@ def fit_phase(dev, label, X, y, must_launch, n_select=10):
         check(moved[name] > 0, f"{label}: the fit launched {name}")
     check(s.shape == (X.shape[1],) and np.isfinite(s).all(),
           f"{label}: finite scores of shape ({X.shape[1]},)")
-
     x_dev = torch.tensor(X, dtype=torch.float32, device=dev)
     fa = analyze_features(x_dev, est.discrete_limit)
-    y_enc = np.unique(y, return_inverse=True)[1]
     t0 = time.perf_counter()
     ref = rc.relief_fused_scores(
-        x_dev, y_enc, fa.recip, fa.is_discrete, algo="multisurf",
-        device=dev, _pass1=rc.dist_matrix_ref, _pass2=rc.accumulate_ref)
+        x_dev, y_enc, fa.recip, fa.is_discrete, device=dev,
+        _pass1=rc.dist_matrix_ref, _pass2=rc.accumulate_ref, **kw)
     ref_s = time.perf_counter() - t0
     ref_top = np.argsort(ref)[::-1][:n_select]
     err = float(np.abs(s - ref).max())
-    check(err <= FIT_ATOL, f"{label}: max |scores - plain engine| = {err}")
+    check(err <= fit_tol(ref), f"{label}: max |scores - plain engine| = "
+          f"{err}")
     check(np.array_equal(est.top_features_, ref_top),
           f"{label}: top_features_ {est.top_features_} vs {ref_top}")
-    print(f"{label}: X {X.shape[0]}x{X.shape[1]} fit {fit_s:.4f} s "
-          f"(plain-pass engine {ref_s:.4f} s); n_pad {plan.n_pad} p_pad "
-          f"{plan.p_pad} nb {plan.nb} ({plan.n_pad // plan.nb} blocks); "
-          f"peak {peak_gb:.2f} GB; launches {moved}; max |scores - plain| "
-          f"{err:.3e}; top_features_ {est.top_features_.tolist()} equal",
-          flush=True)
+    print(f"{label}: {type(est).__name__} X {X.shape[0]}x{X.shape[1]} fit "
+          f"{fit_s:.4f} s (plain-pass engine {ref_s:.4f} s); n_pad "
+          f"{plan.n_pad} p_pad {plan.p_pad} nb {plan.nb} "
+          f"({plan.n_pad // plan.nb} blocks); peak {peak_gb:.2f} GB; "
+          f"launches {moved}; max |scores - plain| {err:.3e}; top_features_ "
+          f"{est.top_features_.tolist()} equal", flush=True)
     return est, fit_s
+
+
+def load_oracles():
+    spec = importlib.util.spec_from_file_location(
+        "oracles", Path(__file__).resolve().parent / "tests" / "oracles.py")
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    return oracle
 
 
 def oracle_phase():
     """The estimator on the card against the numpy oracle of the
     reference's CPU semantics (tests/oracles.py), on the small mixed input
     of tests/test_multisurf.py::test_oracle_parity."""
-    spec = importlib.util.spec_from_file_location(
-        "oracles", Path(__file__).resolve().parent / "tests" / "oracles.py")
-    oracle = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(oracle)
+    oracle = load_oracles()
     rng = np.random.RandomState(0)
     X = rng.rand(37, 19).astype(np.float32)
     X[:, 3] = rng.randint(0, 3, 37)
@@ -253,9 +303,147 @@ def oracle_phase():
               f"ranking equal", flush=True)
 
 
+def oracle_phase_surf_relieff():
+    """SURF, SURF* and ReliefF on the card against tests/oracles.py, on
+    the inputs of tests/test_surf.py::test_oracle_parity and
+    tests/test_relieff.py::test_oracle_parity_{binary,multiclass}."""
+    oracle = load_oracles()
+    cases = []
+    for use_star in (False, True):
+        rng = np.random.RandomState(0)
+        X = rng.rand(41, 23).astype(np.float32)
+        X[:, 5] = rng.randint(0, 4, 41)
+        y = rng.randint(0, 2, 41)
+        cases.append((SURF(n_features_to_select=5, use_star=use_star), X, y,
+                      oracle.surf_scores(X, y, use_star=use_star)))
+    for k in (1, 3, 7):
+        rng = np.random.RandomState(0)
+        X = rng.rand(35, 13).astype(np.float32)
+        X[:, 2] = rng.randint(0, 3, 35)
+        y = rng.randint(0, 2, 35)
+        cases.append((ReliefF(n_features_to_select=5, n_neighbors=k), X, y,
+                      oracle.relieff_scores(X, y, k=k)))
+    rng = np.random.RandomState(0)
+    X = rng.rand(42, 9).astype(np.float32)
+    y = rng.randint(0, 4, 42)
+    cases.append((ReliefF(n_features_to_select=3, n_neighbors=3), X, y,
+                  oracle.relieff_scores(X, y, k=3)))
+    for est, X, y, want in cases:
+        est.fit(X, y)
+        err = float(np.abs(est.feature_importances_ - want).max())
+        name = (f"{type(est).__name__}(use_star={est.use_star})"
+                if isinstance(est, SURF)
+                else f"ReliefF(n_neighbors={est.n_neighbors})")
+        check(est.effective_backend_ == "cuda", "oracle: on the card")
+        check(err <= ORACLE_ATOL_SR, f"oracle {name}: err {err}")
+        print(f"oracle: {name} {X.shape[0]}x{X.shape[1]} on the card vs "
+              f"tests/oracles.py: max |scores - oracle| {err:.3e}",
+              flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The all-discrete engine
+# ---------------------------------------------------------------------------
+
+def planted_genotypes(seed, n, p, n_classes, strengths=(0.6, 0.45, 0.3)):
+    """Genotypes 0..2 with labels; column j carries the label in a share
+    ``strengths[j]`` of the rows, so that the top features are far apart."""
+    rng = np.random.RandomState(seed)
+    X = rng.randint(0, 3, (n, p), dtype=np.int8)
+    y = rng.randint(0, n_classes, n)
+    for j, share in enumerate(strengths):
+        keep = rng.rand(n) < share
+        X[keep, j] = (y[keep] % 3).astype(np.int8)
+    return X, y
+
+
+def fused_mixed_scores(dev, X, y_enc, kw, order):
+    """The fused engine with the MIXED kernels on X as float32, rows in
+    ``order`` (the discrete engine's), recip 1: (scores, seconds,
+    launches).  Both engines then add D in the same row order in the
+    weight rules' float32 row sums."""
+    before = dict(rc.launches)
+    xs = torch.from_numpy(np.ascontiguousarray(X[order])).to(dev)
+    xs = xs.to(torch.float32)
+    p = X.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = rc.relief_fused_scores(
+        xs, y_enc[order], torch.ones(p, device=dev),
+        torch.ones(p, dtype=torch.bool, device=dev), device=dev, **kw)
+    sec = time.perf_counter() - t0
+    del xs
+    torch.cuda.empty_cache()
+    return ref, sec, {k: rc.launches[k] - before[k] for k in rc.launches}
+
+
+def discrete_phase(dev, label, est, X, y, tier, warm=0):
+    """An all-discrete fit on the card: the tier it must take, no fused
+    launch, GEMM work counted, and its scores held against the fused
+    engine with the MIXED kernels.  Returns a dict of what it measured."""
+    n, p = X.shape
+    y_enc = np.unique(y, return_inverse=True)[1]
+    kw = engine_args(est, y_enc)
+    got = rd.discrete_tier(n, p, 3, y_enc, kw["algo"],
+                           kw.get("class_probs"), device=dev)
+    check(got == tier, f"{label}: tier {got}, expected {tier}")
+    before = dict(rc.launches)
+    times, peaks = [], []
+    for _ in range(1 + warm):
+        rd.reset_gemm_ops()
+        est, sec, peak = timed_fit(dev, est, X, y)
+        times.append(sec)
+        peaks.append(peak)
+    ops = rd.gemm_ops
+    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    s = est.feature_importances_
+    check(est.effective_backend_ == "cuda", f"{label}: effective_backend_")
+    check(not any(moved.values()), f"{label}: fused launches {moved}")
+    check(ops > 0, f"{label}: no int8 GEMM ran")
+    check(est.is_discrete_.all(), f"{label}: every column discrete")
+    check(s.shape == (p,) and np.isfinite(s).all(),
+          f"{label}: finite scores of shape ({p},)")
+    check(est.top_features_[0] == 0, f"{label}: column 0 ranks first")
+
+    order = (np.arange(n) if tier == "v1"
+             else np.argsort(y_enc, kind="stable"))
+    ref, ref_s, ref_moved = fused_mixed_scores(dev, X, y_enc, kw, order)
+    ref_top = np.argsort(ref)[::-1][:len(est.top_features_)]
+    err = float(np.abs(s - ref).max())
+    check(ref_moved["relief_pass1_mixed"] > 0
+          and ref_moved["relief_pass2_mixed"] > 0,
+          f"{label}: reference launched the MIXED kernels")
+    check(err <= fit_tol(ref), f"{label}: max |scores - MIXED engine| = "
+          f"{err}")
+    check(np.array_equal(est.top_features_, ref_top),
+          f"{label}: top_features_ {est.top_features_} vs {ref_top}")
+    warm_s = f", warm {', '.join(f'{t:.4f}' for t in times[1:])} s" \
+        if warm else ""
+    print(f"{label}: {type(est).__name__} X {n}x{p} {X.dtype} tier {tier}; "
+          f"fit {times[0]:.4f} s{warm_s}; gemm_ops {ops:.4e}; peak "
+          f"{max(peaks):.2f} GB; MIXED-kernel fused engine {ref_s:.4f} s; "
+          f"max |scores - MIXED| {err:.3e}; top_features_ "
+          f"{est.top_features_.tolist()} equal", flush=True)
+    return dict(first_s=times[0], warm_s=times[1:], gemm_ops=ops,
+                peak_gb=max(peaks), mixed_s=ref_s, err=err)
+
+
+def engine_rate(dev, X, y):
+    """The engine alone on device-resident codes: (seconds, int8 ops)."""
+    codes = torch.from_numpy(X).to(dev)
+    rd.reset_gemm_ops()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rd.relief_discrete_scores(None, y, algo="multisurf", codes=codes,
+                              n_states=3)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, rd.gemm_ops
+
+
 # ---------------------------------------------------------------------------
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
 
@@ -376,6 +564,55 @@ def main():
     for name in KERNELS:
         check(main_launches[name] > 0, f"{name} launched on the main path")
 
+    # 7. the SNP headline on the all-discrete engine
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(0)
+    X = rs.randint(0, 3, (16384, 65536), dtype=np.int8)
+    y = rs.randint(0, 2, 16384)
+    X[:, 0] = 2 * y
+    print(f"headline data: {time.perf_counter() - t0:.2f} s", flush=True)
+    head = discrete_phase(dev, "snp-headline",
+                          MultiSURF(n_features_to_select=10), X, y,
+                          "v2-sym", warm=2)
+    eng_s, eng_ops = engine_rate(dev, X, y)
+    rate = eng_ops / eng_s / 1e12
+    print(f"snp-headline engine alone (codes on the card): {eng_s:.4f} s, "
+          f"{eng_ops:.4e} int8 ops, {rate:.1f} TOP/s = "
+          f"{100 * rate / INT8_PEAK_TOPS:.2f}% of {INT8_PEAK_TOPS:.0f} "
+          f"TOP/s; end to end (first fit) "
+          f"{head['gemm_ops'] / head['first_s'] / 1e12:.1f} TOP/s", flush=True)
+    del X
+
+    # 8. the other tiers
+    X, y = planted_genotypes(1, 3000, 5000, 3)
+    discrete_phase(dev, "tier-v1",
+                   ReliefF(n_features_to_select=3, n_neighbors=5),
+                   X, y, "v1")
+    X, y = planted_genotypes(2, 30000, 2048, 2)
+    discrete_phase(dev, "tier-v2",
+                   MultiSURF(n_features_to_select=3, use_star=True),
+                   X, y, "v2")
+    X, y = planted_genotypes(3, 8192, 16384, 2)
+    discrete_phase(dev, "tier-v2-sym", SURF(n_features_to_select=3),
+                   X.astype(np.float64), y, "v2-sym")
+    del X
+
+    # 9. SURF and ReliefF on continuous data
+    rc.reset_launch_counts()
+    X, y = make_classification(n_samples=10000, n_features=100,
+                               n_informative=10, random_state=4)
+    for make, params in ((SURF, {}), (SURF, {"use_star": True}),
+                         (ReliefF, {"n_neighbors": 10})):
+        fit_phase(dev, "continuous", X.astype(np.float32), y, cont,
+                  make=make, **params)
+    X, y = make_classification(n_samples=50000, n_features=100,
+                               n_informative=10, random_state=0)
+    fit_phase(dev, "large-n", X.astype(np.float32), y, cont, make=ReliefF,
+              n_neighbors=10)
+    oracle_phase_surf_relieff()
+    for name in cont:
+        check(rc.launches[name] > 0, f"{name} launched by SURF/ReliefF")
+
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_launches[name], "max_abs_err": err[name],
@@ -383,7 +620,10 @@ def main():
          "shape": timing[name][2]}
         for name, (src, rep) in KERNELS.items()]}
     print(f"fits: large-n {fit_n:.4f} s, large-p {fit_p:.4f} s, mixed "
-          f"{fit_m:.4f} s on {smi}", flush=True)
+          f"{fit_m:.4f} s; snp-headline first {head['first_s']:.4f} s, warm "
+          f"{', '.join(f'{t:.4f}' for t in head['warm_s'])} s (MIXED route "
+          f"{head['mixed_s']:.4f} s) on {smi}; chip_smoke "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ Backends: ``backend='auto'|'cuda'|'gpu'|'cpu'`` (``'gpu'`` is an alias of
 """
 
 from .models.multisurf import MultiSURF
+from .models.relieff import ReliefF
+from .models.surf import SURF
 
-__all__ = ["MultiSURF"]
+__all__ = ["MultiSURF", "ReliefF", "SURF"]
 
 __version__ = "0.1.0"

@@ -17,8 +17,9 @@ engine makes two passes over the data with weights in between:
                (reference ``ReliefF.py:137-220``).
   pass 2:  scores[f] = sum_ij W[i, j] * diff(i, j, f)
 
-The passes live in ``relief_cuda.py``; this module holds the rules, which
-are plain tensor code on D's device.  Every rule returns a list of
+The passes live in ``relief_cuda.py`` (any data) and ``relief_discrete.py``
+(all-discrete data); this module holds the rules, which are plain tensor
+code on D's device.  Every rule returns a list of
 ``(boolean mask (T, n), per-row coefficient (T,))`` terms with
 ``W = sum_k r_k[:, None] * M_k``.  Statistics stay in float32, as in the
 JAX engines: promoting them would move thresholds and flip near masks.
@@ -128,7 +129,9 @@ def _rules_relieff(D, yi, vi, iid, y_flat, valid_flat, k, class_probs):
     rules = [(W_hit > 0, -hit_norm)]
 
     # k nearest misses per class at weight P(c) / (1 - P(y_i)) / k
-    denom = 1.0 - class_probs[yi]
+    # labels past class_probs (the op-level default of one dummy class)
+    # read its last entry, as JAX's clamped gather does
+    denom = 1.0 - class_probs[yi.clamp(max=n_classes - 1)]
     denom = torch.where(denom == 0, 1.0, denom)
     for c in range(n_classes):
         cand = (y_flat[None, :] == c) & vmask & (yi != c)[:, None]
@@ -172,13 +175,26 @@ def relief_scores(
     n_neighbors: int = 0,
     class_probs: np.ndarray | None = None,
     device: torch.device | None = None,
+    codes=None,
+    n_states: int = 0,
 ) -> np.ndarray:
     """Relief-family importance scores (already divided by n_samples).
 
-    Every input goes to the fused engine of ``relief_cuda.py``: on a CUDA
-    device it runs the hand-written kernels, on the CPU their plain
+    All-discrete data goes to the int8 one-hot GEMM engine of
+    ``relief_discrete.py``, scored from ``codes`` when given (X may then be
+    None) or from X encoded there; so does JAX's ``relief_scores``.  Any
+    other input, and all-discrete data with more than ``MAX_STATES``
+    states in a column, goes to the fused engine of ``relief_cuda.py``: on
+    a CUDA device it runs the hand-written kernels, on the CPU their plain
     PyTorch versions.
     """
+    from ..utils.preprocessing import MAX_STATES
+    if bool(torch.as_tensor(is_discrete).all()) and n_states <= MAX_STATES:
+        from .relief_discrete import relief_discrete_scores
+        return relief_discrete_scores(
+            x if codes is None else None, y, algo=algo, use_star=use_star,
+            n_neighbors=n_neighbors, class_probs=class_probs, device=device,
+            codes=codes, n_states=n_states or None)
     from .relief_cuda import relief_fused_scores
     return relief_fused_scores(
         x, y, recip, is_discrete, algo=algo, use_star=use_star,

@@ -44,6 +44,10 @@ _PASS2_ROWS = 32   # focal rows per pass-2 block (kIT in relief_pass2.cu)
 # plus the rules' float32 and bool temporaries (_rules_multisurf holds
 # about six (nb, n_pad) arrays), with headroom.
 _BYTES_PER_PAIR = 32
+# ReliefF's rules hold more: each of their C + 1 stable sorts keeps float32
+# values and int64 indices (12 B a pair) and the sort's own scratch beside
+# D, the masked copy of D and a one-hot weight block.
+_RELIEFF_BYTES_PER_PAIR = 64
 # Share of the device's free memory a focal block may take.
 _FREE_MEM_FRACTION = 0.8
 # Focal-block budget on the CPU, where the pair arrays live in host memory.
@@ -205,17 +209,18 @@ def _round_up(v: int, m: int) -> int:
     return ((v + m - 1) // m) * m
 
 
-def _focal_block_rows(n_pad: int, ti: int, budget_bytes: int) -> int:
+def _focal_block_rows(n_pad: int, ti: int, budget_bytes: int,
+                      bytes_per_pair: int = _BYTES_PER_PAIR) -> int:
     """Focal block rows nb: the largest multiple of ti that divides n_pad
     (a multiple of ti) and whose pair arrays fit ``budget_bytes``.
 
     The JAX engine's rule (``relief_pallas._focal_block_rows``) with the
     budget taken from the device.  That rule minimises padded work first,
     so it only ever picks block sizes that divide the sample axis."""
-    if n_pad * n_pad * _BYTES_PER_PAIR <= budget_bytes:
+    if n_pad * n_pad * bytes_per_pair <= budget_bytes:
         return n_pad
     m = n_pad // ti
-    cap = max(1, budget_bytes // (_BYTES_PER_PAIR * n_pad * ti))
+    cap = max(1, budget_bytes // (bytes_per_pair * n_pad * ti))
     return ti * max(d for d in range(1, min(cap, m) + 1) if m % d == 0)
 
 
@@ -236,11 +241,16 @@ class BlockPlan(NamedTuple):
     nb: int      # focal rows per block
 
 
-def block_plan(n: int, p: int, device: torch.device) -> BlockPlan:
-    """Padded shape and focal block rows for an (n, p) fit on ``device``."""
+def block_plan(n: int, p: int, device: torch.device,
+               algo: str = "multisurf") -> BlockPlan:
+    """Padded shape and focal block rows for an (n, p) fit of ``algo`` on
+    ``device``."""
     n_pad = _round_up(max(n, 1), TILE_ROWS)
     p_pad = _round_up(max(p, 1), TILE_FEATURES)
-    nb = _focal_block_rows(n_pad, TILE_ROWS, _block_budget_bytes(device))
+    per_pair = (_RELIEFF_BYTES_PER_PAIR if algo == "relieff"
+                else _BYTES_PER_PAIR)
+    nb = _focal_block_rows(n_pad, TILE_ROWS, _block_budget_bytes(device),
+                           per_pair)
     return BlockPlan(n_pad, p_pad, nb)
 
 
@@ -291,7 +301,7 @@ def relief_fused_scores(
         x = torch.tensor(np.asarray(x), dtype=torch.float32)
     device = torch.device(x.device if device is None else device)
     n, p = x.shape
-    plan = block_plan(n, p, device)
+    plan = block_plan(n, p, device, algo)
 
     xp = torch.zeros((plan.n_pad, plan.p_pad), dtype=torch.float32,
                      device=device)

@@ -9,8 +9,10 @@ reference's numerics (``MultiSURF.py:141-144,409-420``):
   zero-range features pinned to range 1.0.
 
 Everything runs on whatever device X is on.  A fit uploads X once and
-analyses that copy; :class:`FeatureAnalysis` keeps it as ``x_dev`` so the
-engine scores the same tensor.
+analyses that copy.  When every column is discrete, the same sort gives
+each value's state code (its rank among the column's unique values) and
+the discrete engine scores the int8 codes; otherwise :class:`FeatureAnalysis`
+keeps X as ``x_dev`` so the fused engine scores the same tensor.
 """
 
 from __future__ import annotations
@@ -22,13 +24,23 @@ import torch
 # Sort at most this many elements at a time: a column sort holds the
 # sorted values and their int64 indices, about 3x the chunk's bytes.
 _SORT_CHUNK_ELEMS = 1 << 26
+# int8 state codes hold ranks 0..126, so at most this many states.
+MAX_STATES = 127
 
 
-def _column_stats(xc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(unique count, range) of each column of ``xc`` from one sort."""
-    xs = torch.sort(xc, dim=0).values
-    n_unique = 1 + (xs[1:] != xs[:-1]).sum(dim=0)
-    return n_unique, xs[-1] - xs[0]
+def _column_stats(xc: torch.Tensor, with_codes: bool = False):
+    """(unique count, range, codes or None) of each column of ``xc`` from
+    one sort.  ``codes[i, f]`` is the rank of ``xc[i, f]`` among column
+    f's unique values (int8; ranks wrap above ``MAX_STATES``)."""
+    xs, order = torch.sort(xc, dim=0)
+    newv = xs[1:] != xs[:-1]
+    n_unique = 1 + newv.sum(dim=0)
+    codes = None
+    if with_codes:
+        rank = torch.zeros(xs.shape, dtype=torch.int8, device=xs.device)
+        rank[1:] = torch.cumsum(newv, dim=0, dtype=torch.int32)
+        codes = torch.empty_like(rank).scatter_(0, order, rank)
+    return n_unique, xs[-1] - xs[0], codes
 
 
 def _recip(ranges: torch.Tensor) -> torch.Tensor:
@@ -71,22 +83,42 @@ class FeatureAnalysis:
     is_discrete: torch.Tensor         # (p,) bool
     recip: torch.Tensor               # (p,) float32, 1/range with zero guard
     x_dev: torch.Tensor | None = None  # (n, p) float32 X the analysis read
+    codes: torch.Tensor | None = None  # (n, p) int8 state codes, all-discrete X
+    n_states: int = 0                 # largest cardinality of a discrete column
+
+
+def encode_columns(x: torch.Tensor, f_chunk: int | None = None):
+    """(codes (n, p) int8, unique counts (p,), ranges (p,)) of float32 X,
+    on X's device, one sort per chunk of ``f_chunk`` columns."""
+    n, p = x.shape
+    if f_chunk is None:
+        f_chunk = max(1, _SORT_CHUNK_ELEMS // max(n, 1))
+    codes = torch.empty((n, p), dtype=torch.int8, device=x.device)
+    n_unique = torch.empty(p, dtype=torch.int64, device=x.device)
+    ranges = torch.empty(p, dtype=torch.float32, device=x.device)
+    for f0 in range(0, p, f_chunk):
+        sl = slice(f0, f0 + f_chunk)
+        n_unique[sl], ranges[sl], codes[:, sl] = _column_stats(
+            x[:, sl], with_codes=True)
+    return codes, n_unique, ranges
 
 
 def analyze_features(x: torch.Tensor, discrete_limit: int) -> FeatureAnalysis:
     """Discreteness and reciprocal ranges of every column of ``x``.
 
-    One ``torch.sort`` per column chunk gives both the cardinality and the
-    range.  The analysis runs in float32, the engine's compute type, and
-    ``x`` is kept as ``x_dev``.
+    One ``torch.sort`` per column chunk gives the cardinality, the range
+    and the state codes.  The analysis runs in float32, the engine's
+    compute type.  All-discrete X with at most ``MAX_STATES`` states per
+    column comes back as ``codes`` (as ``fastselect_tpu``'s
+    ``encode_discrete`` would give them); any other X is kept as ``x_dev``
+    and gets no codes.  ``n_states`` is the largest cardinality over the
+    discrete columns (1 when there is none).
     """
     x = x.to(torch.float32)
-    n, p = x.shape
-    f_chunk = max(1, _SORT_CHUNK_ELEMS // max(n, 1))
-    n_unique = torch.empty(p, dtype=torch.int64, device=x.device)
-    ranges = torch.empty(p, dtype=torch.float32, device=x.device)
-    for f0 in range(0, p, f_chunk):
-        nu, rg = _column_stats(x[:, f0:f0 + f_chunk])
-        n_unique[f0:f0 + f_chunk] = nu
-        ranges[f0:f0 + f_chunk] = rg
-    return FeatureAnalysis(n_unique <= discrete_limit, _recip(ranges), x)
+    codes, n_unique, ranges = encode_columns(x)
+    is_disc = n_unique <= discrete_limit
+    n_states = int(n_unique[is_disc].max()) if bool(is_disc.any()) else 1
+    if bool(is_disc.all()) and n_states <= MAX_STATES:
+        return FeatureAnalysis(is_disc, _recip(ranges), codes=codes,
+                               n_states=n_states)
+    return FeatureAnalysis(is_disc, _recip(ranges), x, n_states=n_states)

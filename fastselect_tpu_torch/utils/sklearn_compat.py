@@ -62,15 +62,19 @@ except ImportError:
     def validate_data(estimator, X, y=None, *, reset=True,
                       dtype=np.float64, ensure_2d=True, y_numeric=False):
         """Array conversion and checks of ``sklearn``'s ``validate_data``
-        for the arguments the estimators pass."""
-        if isinstance(dtype, (list, tuple)):
+        for the arguments the estimators pass.  ``dtype="numeric"`` keeps
+        a numeric dtype and casts object input to float64."""
+        if isinstance(dtype, str) and dtype == "numeric":
+            X = np.asarray(X)
+            dtype = np.float64 if X.dtype.kind == "O" else X.dtype
+        elif isinstance(dtype, (list, tuple)):
             X = np.asarray(X)
             dtype = X.dtype if X.dtype in dtype else dtype[0]
         X = np.asarray(X, dtype=dtype)
         if ensure_2d and X.ndim != 2:
             raise ValueError(f"Expected 2D array, got {X.ndim}D array "
                              "instead.")
-        if not np.isfinite(X).all():
+        if X.dtype.kind in "fc" and not np.isfinite(X).all():
             raise ValueError("Input X contains NaN." if np.isnan(X).any()
                              else "Input X contains infinity.")
         if reset:

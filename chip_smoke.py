@@ -15,32 +15,51 @@ Phases, one or two lines each on stdout:
 4. ``MultiSURF().fit`` at the upstream reference's large-n point,
    50,000 samples x 100 continuous features;
 5. the same at its large-p point, 100 samples x 100,000 features;
-6. a small mixed fit (2,000 x 200 with 40 integer-valued columns), and
-   MultiSURF and MultiSURF* on a 37 x 19 mixed input against the numpy
-   oracle of the reference's semantics in ``tests/oracles.py``;
+6. a small mixed fit (2,000 x 200 with 40 integer-valued columns) on the
+   hybrid engine, a mixed fit with a 150-state discrete column on the
+   fused engine's ``MIXED`` kernels, and MultiSURF and MultiSURF* on a
+   37 x 19 mixed input against the numpy oracle of the reference's
+   semantics in ``tests/oracles.py``;
 7. the SNP headline: ``MultiSURF().fit`` on 16,384 x 65,536 int8
    genotypes, through the integer fast path and the symmetric tier of the
    all-discrete engine (int8 GEMMs), timed first and warm, with the
-   engine's int8 rate and peak memory;
+   engine's int8 rate and peak memory; then the same genotypes fitted as
+   an int8 tensor already on the card;
 8. the engine's other tiers: v1 (ReliefF, 3,000 x 5,000, 3 classes), the
    v2 block loop (MultiSURF*, 30,000 x 2,048) and v2-sym again (SURF,
    8,192 x 16,384 float input, encoded on the card);
 9. SURF and ReliefF on continuous data (10,000 x 100), ReliefF at
    50,000 x 100, and SURF, SURF* and ReliefF against ``tests/oracles.py``
    on the small mixed inputs of ``tests/test_surf.py`` and
-   ``tests/test_relieff.py``.
+   ``tests/test_relieff.py``;
+10. the hybrid engine at size: mixed-square (16,384 x 4,096, half
+    genotypes, one square class-sorted block) and mixed-large-n
+    (50,000 x 100 with 40 columns cut to 0..2, focal blocks);
+11. device-fit: the large-n data fitted as a float32 tensor on the card,
+    against the host-array fit;
+12. TuRF's fast scorer (4,096 x 16,384 genotypes, 10,000 x 1,000
+    continuous, the same with 100 columns cut to 0..2) against a TuRF that
+    re-fits its base estimator each round;
+13. ``chi2`` on a float32 tensor of 2,000 x 200,000 counts on the card
+    against the float64 host path.
 
 Phases 4-6 are the main path of the four kernels: every kernel launch
-count is set to 0 before them and read after them, and each kernel must
-have been launched there.  Each fit there and in phase 9 is held against
-the same engine run on the card with the plain PyTorch passes.  Phases 7
-and 8 are the all-discrete path: the GEMM operation count is set to 0
-before each fit and read after it, no fused kernel may launch in it, and
-each fit is held against the fused engine with the ``MIXED`` kernels on
-the same data as float32, the route all-discrete data took before.  Any
-failed check raises, so the script exits non-zero; it also fails when no
-CUDA device is present.  The line before the last is a JSON summary of
-the kernels; the last line is ``{"ok": true, "device": {...}}``.
+count is set to 0 before them and read after them, less the launches of
+the small mixed fit's ``MIXED``-kernel reference, and each kernel must
+have been launched there by a fit (the ``MIXED`` kernels by the
+150-state fit).
+Each fused-engine fit there and in phase 9 is held against the same
+engine run on the card with the plain PyTorch passes.  Phases 7 and 8 are
+the all-discrete path: the GEMM operation count is set to 0 before each
+fit and read after it, no fused kernel may launch in it, and each fit is
+held against the fused engine with the ``MIXED`` kernels on the same data
+as float32, the route all-discrete data took before.  Each hybrid fit
+must launch the continuous kernels and the int8 GEMMs and no ``MIXED``
+kernel, and is held against the fused engine with the ``MIXED`` kernels
+on the same rows in the hybrid's order.  Any failed check raises, so the
+script exits non-zero; it also fails when no CUDA device is present.  The
+line before the last is a JSON summary of the kernels; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -55,9 +74,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from fastselect_tpu_torch import MultiSURF, ReliefF, SURF, _build
+from fastselect_tpu_torch import MultiSURF, ReliefF, SURF, TuRF, _build, chi2
+from fastselect_tpu_torch.models import _relief_base
 from fastselect_tpu_torch.ops import relief_cuda as rc
 from fastselect_tpu_torch.ops import relief_discrete as rd
+from fastselect_tpu_torch.ops import relief_hybrid as rh
+from fastselect_tpu_torch.ops.chi2_op import chi2_stats_exact
+from fastselect_tpu_torch.ops.relief import relief_engine
 from fastselect_tpu_torch.utils.preprocessing import analyze_features
 
 # Kernel name -> (source, Pallas kernel it replaces)
@@ -76,6 +99,9 @@ SCORE_RTOL = 1e-3    # pass 2 against its plain version, relative to max|s|
 FIT_ATOL = 1e-4      # fitted scores against the plain-pass engine
 ORACLE_ATOL = 2e-6   # against tests/oracles.py, as tests/test_multisurf.py
 ORACLE_ATOL_SR = 5e-6  # as tests/test_surf.py and tests/test_relieff.py
+DEVICE_FIT_ATOL = 1e-6  # a tensor fit against the host-array fit (expected: 0)
+TURF_ATOL = 1e-5     # TuRF's fast scorers against its re-fitting loop
+CHI2_RTOL = 1e-4     # chi2 on the card against the float64 host path
 INT8_PEAK_TOPS = 1979.0  # H100 SXM dense int8, NVIDIA's data sheet
 ALGO = {"MultiSURF": "multisurf", "SURF": "surf", "ReliefF": "relieff"}
 
@@ -357,20 +383,24 @@ def planted_genotypes(seed, n, p, n_classes, strengths=(0.6, 0.45, 0.3)):
     return X, y
 
 
-def fused_mixed_scores(dev, X, y_enc, kw, order):
+def fused_mixed_scores(dev, X, y_enc, kw, order, recip=None,
+                       is_discrete=None):
     """The fused engine with the MIXED kernels on X as float32, rows in
-    ``order`` (the discrete engine's), recip 1: (scores, seconds,
-    launches).  Both engines then add D in the same row order in the
-    weight rules' float32 row sums."""
+    ``order`` (the discrete or hybrid engine's), with every column
+    discrete and recip 1 unless given: (scores, seconds, launches).  Both
+    engines then add D in the same row order in the weight rules' float32
+    row sums."""
     before = dict(rc.launches)
     xs = torch.from_numpy(np.ascontiguousarray(X[order])).to(dev)
     xs = xs.to(torch.float32)
     p = X.shape[1]
+    if recip is None:
+        recip = torch.ones(p, device=dev)
+        is_discrete = torch.ones(p, dtype=torch.bool, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = rc.relief_fused_scores(
-        xs, y_enc[order], torch.ones(p, device=dev),
-        torch.ones(p, dtype=torch.bool, device=dev), device=dev, **kw)
+        xs, y_enc[order], recip, is_discrete, device=dev, **kw)
     sec = time.perf_counter() - t0
     del xs
     torch.cuda.empty_cache()
@@ -425,7 +455,7 @@ def discrete_phase(dev, label, est, X, y, tier, warm=0):
           f"max |scores - MIXED| {err:.3e}; top_features_ "
           f"{est.top_features_.tolist()} equal", flush=True)
     return dict(first_s=times[0], warm_s=times[1:], gemm_ops=ops,
-                peak_gb=max(peaks), mixed_s=ref_s, err=err)
+                peak_gb=max(peaks), mixed_s=ref_s, err=err, scores=s)
 
 
 def engine_rate(dev, X, y):
@@ -438,6 +468,204 @@ def engine_rate(dev, X, y):
                               n_states=3)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, rd.gemm_ops
+
+
+# ---------------------------------------------------------------------------
+# The hybrid engine, device-tensor fits, TuRF and chi2
+# ---------------------------------------------------------------------------
+
+def quantized(X, cols):
+    """X with ``cols`` cut into 3 states at -0.5 and 0.5 (0..2), so that
+    an informative column stays informative when it turns discrete."""
+    X = X.copy()
+    X[:, cols] = np.digitize(X[:, cols], [-0.5, 0.5])
+    return X
+
+
+def hybrid_phase(dev, label, X, y, n_select=10, warm=0):
+    """A mixed MultiSURF fit on the card (then ``warm`` more, timed): it
+    must take the hybrid engine (continuous kernels and int8 GEMMs, no
+    MIXED launch), and is held against the fused engine with the MIXED
+    kernels on the same rows in the hybrid's order (class-sorted on the
+    square v2 path).  Returns the fitted estimator, the first fit's
+    seconds and the reference's kernel launches."""
+    n, p = X.shape
+    est = MultiSURF(n_features_to_select=n_select)
+    y_enc = np.unique(y, return_inverse=True)[1]
+    kw = engine_args(est, y_enc)
+    fa = analyze_features(torch.tensor(X, dtype=torch.float32, device=dev),
+                          est.discrete_limit)
+    disc = fa.is_discrete.cpu().numpy()
+    n_states = fa.n_states
+    route = relief_engine(n, disc, n_states)
+    check(route == "hybrid", f"{label}: route {route}")
+    plan = rh.hybrid_plan(n, int((~disc).sum()), int(disc.sum()),
+                          n_states, dev, kw["algo"])
+    square = plan.nb == plan.n_pad
+    sorted_rows = square and rd._v2_layout(
+        y_enc, n, 8, kw["algo"], kw.get("class_probs")) is not None
+    before = dict(rc.launches)
+    rd.reset_gemm_ops()
+    est, fit_s, peak_gb = timed_fit(dev, est, X, y)
+    ops = rd.gemm_ops
+    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    warm_s = [timed_fit(dev, est, X, y)[1] for _ in range(warm)]
+    s = est.feature_importances_
+    check(est.effective_backend_ == "cuda", f"{label}: effective_backend_")
+    check(moved["relief_pass1_cont"] > 0 and moved["relief_pass2_cont"] > 0,
+          f"{label}: continuous kernels launched {moved}")
+    check(moved["relief_pass1_mixed"] == 0
+          and moved["relief_pass2_mixed"] == 0,
+          f"{label}: no MIXED launch {moved}")
+    check(ops > 0, f"{label}: no int8 GEMM ran")
+    check(np.array_equal(est.is_discrete_, disc), f"{label}: is_discrete_")
+    check(s.shape == (p,) and np.isfinite(s).all(),
+          f"{label}: finite scores of shape ({p},)")
+
+    order = (np.argsort(y_enc, kind="stable") if sorted_rows
+             else np.arange(n))
+    ref, ref_s, ref_moved = fused_mixed_scores(
+        dev, X, y_enc, kw, order, fa.recip, fa.is_discrete)
+    del fa
+    ref_top = np.argsort(ref)[::-1][:n_select]
+    err = float(np.abs(s - ref).max())
+    check(ref_moved["relief_pass1_mixed"] > 0
+          and ref_moved["relief_pass2_mixed"] > 0,
+          f"{label}: reference launched the MIXED kernels")
+    check(err <= fit_tol(ref), f"{label}: max |scores - MIXED engine| = "
+          f"{err}")
+    check(np.array_equal(est.top_features_, ref_top),
+          f"{label}: top_features_ {est.top_features_} vs {ref_top}")
+    path = ("square, class-sorted rows" if sorted_rows else "square"
+            if square else f"blocked, {plan.n_pad // plan.nb} focal blocks")
+    print(f"{label}: MultiSURF X {n}x{p} ({int(disc.sum())} discrete, "
+          f"{n_states} states) hybrid {path}; plan n_pad "
+          f"{plan.n_pad} p_c_pad {plan.p_c_pad} p_d_pad {plan.p_d_pad} ftd "
+          f"{plan.ftd} nb {plan.nb}; fit {fit_s:.4f} s"
+          f"{''.join(f', warm {t:.4f} s' for t in warm_s)}; gemm_ops "
+          f"{ops:.4e}; launches {moved}; peak {peak_gb:.2f} GB; "
+          f"MIXED-kernel fused engine {ref_s:.4f} s; max |scores - MIXED| "
+          f"{err:.3e}; top_features_ {est.top_features_.tolist()} equal",
+          flush=True)
+    return est, fit_s, ref_moved
+
+
+def device_fit_phase(dev, label, X, y, host_est, host_s):
+    """``fit`` on X already on the card as a tensor: the host-array fit's
+    model, with no host copy of X.  Returns the fit's seconds."""
+    Xt = torch.from_numpy(X).to(dev)
+    before = dict(rc.launches)
+    est, fit_s, peak_gb = timed_fit(
+        dev, MultiSURF(n_features_to_select=len(host_est.top_features_)),
+        Xt, y)
+    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    err = float(np.abs(est.feature_importances_
+                       - host_est.feature_importances_).max())
+    check(est.effective_backend_ == "cuda", f"{label}: effective_backend_")
+    check(err <= DEVICE_FIT_ATOL, f"{label}: max |tensor - array fit| {err}")
+    check(np.array_equal(est.top_features_, host_est.top_features_),
+          f"{label}: top_features_")
+    del Xt
+    torch.cuda.empty_cache()
+    print(f"{label}: MultiSURF on a tensor ({X.dtype}) {X.shape[0]}x"
+          f"{X.shape[1]} on the card: fit {fit_s:.4f} s (host-array fit "
+          f"{host_s:.4f} s); peak {peak_gb:.2f} GB; launches {moved}; max "
+          f"|tensor fit - array fit| {err:.3e}; top_features_ equal",
+          flush=True)
+    return fit_s
+
+
+class RefitTuRF(TuRF):
+    """TuRF without its fast scorers: the base estimator re-fits on the
+    active columns every round, as the reference's loop does."""
+
+    def _make_fast_scorer(self, base, X, y):
+        return None
+
+
+def turf_phase(dev, label, X, y, kind):
+    """TuRF(MultiSURF()) with its device-resident fast scorer against the
+    re-fitting loop on the card: one copy of X to the card (counted where
+    the fits copy it, over the whole TuRF fit), the same selection.  Each
+    runs twice, alternating, so that neither alone pays the process's
+    first allocations at this shape."""
+    kw = dict(n_features_to_select=10, pct_remove=0.5)
+    fast_s, slow_s = [], []
+    for _ in range(2):
+        _relief_base.reset_upload_count()
+        rd.reset_gemm_ops()
+        before = dict(rc.launches)
+        fast, sec, peak_gb = timed_fit(dev, TuRF(MultiSURF(), **kw), X, y)
+        fast_s.append(sec)
+        uploads, ops = _relief_base.uploads, rd.gemm_ops
+        moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+        _relief_base.reset_upload_count()
+        slow, sec, _ = timed_fit(dev, RefitTuRF(MultiSURF(), **kw), X, y)
+        slow_s.append(sec)
+        slow_uploads = _relief_base.uploads
+    err = float(np.abs(fast.feature_importances_
+                       - slow.feature_importances_).max())
+    final = float(np.abs(fast._final_scores_ - slow._final_scores_).max())
+    rounds = fast._iteration_ + 1
+    check(uploads == 1, f"{label}: X went to the card {uploads} times")
+    check(slow_uploads == slow._iteration_ + 1,
+          f"{label}: the re-fitting loop copied X {slow_uploads} times")
+    mixed_moved = moved["relief_pass1_mixed"] + moved["relief_pass2_mixed"]
+    if kind == "discrete":
+        check(ops > 0 and not any(moved.values()),
+              f"{label}: discrete engine ({ops} ops, launches {moved})")
+    elif kind == "continuous":
+        check(moved["relief_pass1_cont"] >= rounds
+              and moved["relief_pass2_cont"] >= rounds and ops == 0,
+              f"{label}: continuous kernels each round {moved}")
+    else:
+        check(ops > 0 and moved["relief_pass1_cont"] > 0
+              and moved["relief_pass2_cont"] > 0 and mixed_moved == 0,
+              f"{label}: hybrid engine ({ops} ops, launches {moved})")
+    check(rounds == slow._iteration_ + 1, f"{label}: rounds")
+    check(err <= TURF_ATOL and final <= TURF_ATOL,
+          f"{label}: max |fast - refit| importances {err}, last round "
+          f"{final}")
+    check(np.array_equal(fast.top_features_, slow.top_features_),
+          f"{label}: top_features_ {fast.top_features_} vs "
+          f"{slow.top_features_}")
+    print(f"{label}: TuRF(MultiSURF(), n_features_to_select=10, "
+          f"pct_remove=0.5) X {X.shape[0]}x{X.shape[1]} {X.dtype}: "
+          f"{rounds} rounds; fast scorer {fast_s[0]:.4f}, then "
+          f"{fast_s[1]:.4f} s (X copied to the card {uploads} time, peak "
+          f"{peak_gb:.2f} GB), re-fitting loop {slow_s[0]:.4f}, then "
+          f"{slow_s[1]:.4f} s (X copied {slow_uploads} times); max "
+          f"|importances fast - refit| {err:.3e}, last round {final:.3e}; "
+          f"top_features_ {fast.top_features_.tolist()} equal", flush=True)
+
+
+def chi2_phase(dev, n=2000, p=200000, c=5):
+    """chi2 on a float32 tensor of counts on the card (by default the
+    upstream benchmark's 2,000 x 200,000, counts 0..4, 5 classes) against
+    the float64 host path."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Xt = torch.randint(0, 5, (n, p), generator=gen, device=dev,
+                       dtype=torch.float32)
+    y = np.random.RandomState(0).randint(0, c, n)
+    stats, pv = chi2(Xt, y)                       # first call
+    dev_ms = cuda_ms(lambda: chi2(Xt, y), 3)
+    X = Xt.cpu().numpy()
+    del Xt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want = chi2_stats_exact(X, y, c)
+    host_s = time.perf_counter() - t0
+    rel = float(np.max(np.abs(stats - want) / np.maximum(np.abs(want),
+                                                         1e-300)))
+    check(stats.shape == (p,) and np.isfinite(stats).all()
+          and np.isfinite(pv).all(), "chi2: finite statistics")
+    check(np.allclose(stats, want, rtol=CHI2_RTOL, atol=0),
+          f"chi2: max relative difference {rel}")
+    print(f"chi2: float32 tensor {n}x{p} counts, {c} classes on the card: "
+          f"{dev_ms:.4f} ms a call (host array in float64: "
+          f"{host_s * 1e3:.4f} ms); max relative difference to the float64 "
+          f"host path {rel:.3e}", flush=True)
+    return dev_ms, host_s
 
 
 # ---------------------------------------------------------------------------
@@ -543,9 +771,10 @@ def main():
     # 4-6. the main path
     rc.reset_launch_counts()
     cont = ("relief_pass1_cont", "relief_pass2_cont")
-    X, y = make_classification(n_samples=50000, n_features=100,
-                               n_informative=10, random_state=0)
-    _, fit_n = fit_phase(dev, "large-n", X.astype(np.float32), y, cont)
+    X_n, y_n = make_classification(n_samples=50000, n_features=100,
+                                   n_informative=10, random_state=0)
+    X_n = X_n.astype(np.float32)
+    large_n, fit_n = fit_phase(dev, "large-n", X_n, y_n, cont)
     X, y = make_classification(n_samples=100, n_features=100000,
                                random_state=0)
     _, fit_p = fit_phase(dev, "large-p", X.astype(np.float32), y, cont)
@@ -554,13 +783,19 @@ def main():
     X = X.astype(np.float32)
     X[:, :40] = np.random.RandomState(3).randint(0, 3, (2000, 40))
     X[:, 0] = 2 * y              # a strongly relevant discrete column
-    est, fit_m = fit_phase(dev, "mixed", X, y,
-                           ("relief_pass1_mixed", "relief_pass2_mixed"))
+    est, fit_m, ref_mixed = hybrid_phase(dev, "mixed", X, y)
     check(est.is_discrete_[:40].all() and not est.is_discrete_[40:].any(),
           "mixed: exactly the 40 integer columns are discrete")
     check(est.top_features_[0] == 0, "mixed: the planted column ranks first")
+    X[:, 1] = np.arange(2000) % 150   # 150 states: past int8 state codes
+    est, fit_mf = fit_phase(dev, "mixed-fused", X, y,
+                            ("relief_pass1_mixed", "relief_pass2_mixed"),
+                            discrete_limit=200)
+    check(est.is_discrete_[:40].all() and not est.is_discrete_[40:].any(),
+          "mixed-fused: the 40 integer columns are discrete")
     oracle_phase()
-    main_launches = dict(rc.launches)
+    # the mixed phase's reference ran the MIXED kernels: not the main path
+    main_launches = {k: rc.launches[k] - ref_mixed[k] for k in rc.launches}
     for name in KERNELS:
         check(main_launches[name] > 0, f"{name} launched on the main path")
 
@@ -581,6 +816,11 @@ def main():
           f"{100 * rate / INT8_PEAK_TOPS:.2f}% of {INT8_PEAK_TOPS:.0f} "
           f"TOP/s; end to end (first fit) "
           f"{head['gemm_ops'] / head['first_s'] / 1e12:.1f} TOP/s", flush=True)
+    head_est = MultiSURF(n_features_to_select=10)
+    head_est.feature_importances_ = head["scores"]
+    head_est.top_features_ = np.argsort(head["scores"])[::-1][:10]
+    dev_int8_s = device_fit_phase(dev, "device-fit int8", X, y, head_est,
+                                  min(head["warm_s"]))
     del X
 
     # 8. the other tiers
@@ -613,6 +853,37 @@ def main():
     for name in cont:
         check(rc.launches[name] > 0, f"{name} launched by SURF/ReliefF")
 
+    # 10. the hybrid engine at size
+    X, y = make_classification(n_samples=16384, n_features=2048,
+                               n_informative=16, random_state=5)
+    X = np.hstack([np.random.RandomState(6).randint(0, 3, (16384, 2048)),
+                   X]).astype(np.float32)
+    X[:, 0] = 2 * y
+    _, fit_sq, _ = hybrid_phase(dev, "mixed-square", X, y, warm=1)
+    del X
+    _, fit_ln, _ = hybrid_phase(dev, "mixed-large-n",
+                                quantized(X_n, np.arange(40)), y_n)
+
+    # 11. a float32 tensor fit against the host-array fit, both warm
+    large_n, host_n = timed_fit(dev, MultiSURF(n_features_to_select=10),
+                                X_n, y_n)[:2]
+    dev_n_s = device_fit_phase(dev, "device-fit float32", X_n, y_n,
+                               large_n, host_n)
+
+    # 12. TuRF's fast scorers
+    X, y = planted_genotypes(7, 4096, 16384, 2)
+    turf_phase(dev, "turf-discrete", X, y, "discrete")
+    X, y = make_classification(n_samples=10000, n_features=1000,
+                               n_informative=10, random_state=8)
+    turf_phase(dev, "turf-continuous", X.astype(np.float32), y,
+               "continuous")
+    turf_phase(dev, "turf-mixed", quantized(X, np.arange(100)).astype(
+        np.float32), y, "mixed")
+    del X
+
+    # 13. chi2
+    chi2_ms, chi2_host_s = chi2_phase(dev)
+
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_launches[name], "max_abs_err": err[name],
@@ -620,10 +891,14 @@ def main():
          "shape": timing[name][2]}
         for name, (src, rep) in KERNELS.items()]}
     print(f"fits: large-n {fit_n:.4f} s, large-p {fit_p:.4f} s, mixed "
-          f"{fit_m:.4f} s; snp-headline first {head['first_s']:.4f} s, warm "
+          f"{fit_m:.4f} s, mixed-fused {fit_mf:.4f} s, mixed-square "
+          f"{fit_sq:.4f} s, mixed-large-n {fit_ln:.4f} s; snp-headline first "
+          f"{head['first_s']:.4f} s, warm "
           f"{', '.join(f'{t:.4f}' for t in head['warm_s'])} s (MIXED route "
-          f"{head['mixed_s']:.4f} s) on {smi}; chip_smoke "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+          f"{head['mixed_s']:.4f} s); tensor fits int8 {dev_int8_s:.4f} s, "
+          f"float32 {dev_n_s:.4f} s (host array {host_n:.4f} s); chi2 "
+          f"{chi2_ms:.4f} ms (host {chi2_host_s * 1e3:.4f} ms) on {smi}; "
+          f"chip_smoke {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,12 @@ Backends: ``backend='auto'|'cuda'|'gpu'|'cpu'`` (``'gpu'`` is an alias of
 ``'cuda'``, as in the upstream reference).
 """
 
+from .models.chi2 import chi2
 from .models.multisurf import MultiSURF
 from .models.relieff import ReliefF
 from .models.surf import SURF
+from .models.turf import TuRF
 
-__all__ = ["MultiSURF", "ReliefF", "SURF"]
+__all__ = ["MultiSURF", "ReliefF", "SURF", "TuRF", "chi2"]
 
 __version__ = "0.1.0"

@@ -13,6 +13,7 @@ import torch
 from .models.multisurf import MultiSURF
 from .models.relieff import ReliefF
 from .models.surf import SURF
+from .models.turf import TuRF
 from .utils.preprocessing import FeatureAnalysis
 
 _ESTIMATORS = {"MultiSURF": MultiSURF, "SURF": SURF, "ReliefF": ReliefF}
@@ -25,7 +26,9 @@ _BACKENDS = {"auto": "auto", "tpu": "auto", "cpu": "cpu", "gpu": "gpu"}
 def analysis_from_jax(fa, device="cpu") -> FeatureAnalysis:
     """The port's FeatureAnalysis, on ``device``, from a ``fastselect_tpu``
     one (numpy ``is_discrete``, ``recip`` and ``codes``, and
-    ``n_states``).  X is not carried over."""
+    ``n_states``).  The codes of mixed X come along with those of
+    all-discrete X; the hybrid engine reads their discrete columns.  X is
+    not carried over."""
     device = torch.device(device)
     codes = (None if fa.codes is None else
              torch.as_tensor(np.asarray(fa.codes, np.int8), device=device))
@@ -35,21 +38,34 @@ def analysis_from_jax(fa, device="cpu") -> FeatureAnalysis:
         codes=codes, n_states=int(fa.n_states))
 
 
-def estimator_from_jax(est):
-    """A fitted port ``MultiSURF``, ``SURF`` or ``ReliefF`` from the fitted
-    ``fastselect_tpu`` estimator of the same name: the same parameters
-    (``transfer_dtype``, a TPU staging option, is not ported) and fitted
-    arrays, so ``transform`` selects the same columns.  A JAX
-    ``backend='tpu'`` becomes ``'auto'``.  ``effective_backend_`` keeps
-    saying where the scores were computed."""
-    cls = _ESTIMATORS.get(type(est).__name__)
-    if cls is None or not hasattr(est, "feature_importances_"):
-        raise TypeError("estimator_from_jax takes a fitted fastselect_tpu "
-                        "MultiSURF, SURF or ReliefF")
+def _params_from_jax(est) -> dict:
     params = est.get_params(deep=False)
     params.pop("transfer_dtype", None)
     params["backend"] = _BACKENDS[params["backend"]]
-    out = cls(**params)
+    return params
+
+
+def estimator_from_jax(est):
+    """A fitted port ``MultiSURF``, ``SURF``, ``ReliefF`` or ``TuRF`` from
+    the fitted ``fastselect_tpu`` estimator of the same name: the same
+    parameters (``transfer_dtype``, a TPU staging option, is not ported)
+    and fitted state, so ``transform`` selects the same columns.  A JAX
+    ``backend='tpu'`` becomes ``'auto'``.  ``effective_backend_`` keeps
+    saying where the scores were computed.  A TuRF's Relief estimator
+    becomes the port's, with its parameters; any other estimator is kept
+    as it is.  Its fitted state is carried by ``save_state``."""
+    if type(est).__name__ == "TuRF" and hasattr(est, "top_features_"):
+        params = est.get_params(deep=False)
+        inner = _ESTIMATORS.get(type(params["estimator"]).__name__)
+        if inner is not None:
+            params["estimator"] = inner(**_params_from_jax(
+                params["estimator"]))
+        return TuRF(**params).load_state(est.save_state())
+    cls = _ESTIMATORS.get(type(est).__name__)
+    if cls is None or not hasattr(est, "feature_importances_"):
+        raise TypeError("estimator_from_jax takes a fitted fastselect_tpu "
+                        "MultiSURF, SURF, ReliefF or TuRF")
+    out = cls(**_params_from_jax(est))
     for name in _FITTED:
         if hasattr(est, name):
             value = getattr(est, name)

@@ -1,5 +1,7 @@
+from .chi2 import chi2
 from .multisurf import MultiSURF
 from .relieff import ReliefF
 from .surf import SURF
+from .turf import TuRF
 
-__all__ = ["MultiSURF", "ReliefF", "SURF"]
+__all__ = ["MultiSURF", "ReliefF", "SURF", "TuRF", "chi2"]

@@ -3,9 +3,11 @@
 Counterpart of ``fastselect_tpu/models/_relief_base.py``: subclasses
 define ``_algo_name`` and ``_score``.  A fit validates X on the host,
 uploads it to the compute device once as float32, analyses its columns
-there, and scores that same tensor, or the state codes the analysis made
-of it when every column is discrete.  Small non-negative integer X
-(genotypes) skips the float copy: it is uploaded once as int8 codes.
+there, and scores that same tensor, the state codes the analysis made of
+it, or both (mixed data).  Small non-negative integer X (genotypes) skips
+the float copy: it is uploaded once as int8 codes.  A ``torch.Tensor`` X
+is checked and scored on its own device, with no host round trip
+(the counterpart of the JAX package's device-array fit).
 """
 
 from __future__ import annotations
@@ -13,12 +15,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.backend import default_device, resolve_backend, _VALID_BACKENDS
+from ..ops.relief import relief_engine
+from ..utils.backend import (default_device, resolve_backend,
+                             tensor_backend, _VALID_BACKENDS)
 from ..utils.preprocessing import (MAX_STATES, FeatureAnalysis,
                                    analyze_features)
 from ..utils.sklearn_compat import (BaseEstimator, TransformerMixin,
                                     check_is_fitted, validate_data)
 from ..utils.validation import check_min_samples, resolve_n_features_to_select
+
+# copies of a host X to a fit's device since the last reset: one per fit,
+# two where one-byte integer X fails the code range and goes again as float
+uploads = 0
+
+
+def reset_upload_count() -> None:
+    global uploads
+    uploads = 0
 
 
 class BaseReliefSelector(TransformerMixin, BaseEstimator):
@@ -39,7 +52,10 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
         return resolve_backend(self.backend, self._algo_name)
 
     def _device(self) -> torch.device:
-        return default_device(self.effective_backend_)
+        """A tensor fit's own device, else the effective backend's."""
+        dev = getattr(self, "_device_", None)
+        return dev if dev is not None else default_device(
+            self.effective_backend_)
 
     def _log_running(self, star_name: str | None = None):
         if getattr(self, "verbose", False):
@@ -52,8 +68,11 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
 
         Parameters
         ----------
-        X : array-like of shape (n_samples, n_features)
-            Training samples. NaN values are rejected.
+        X : array-like or torch.Tensor of shape (n_samples, n_features)
+            Training samples. NaN values are rejected.  A tensor is
+            scored on its own device (CUDA or CPU) and never copied to
+            the host; a ``backend`` other than ``'auto'`` must name that
+            device.
         y : array-like of shape (n_samples,)
             Numeric class labels.
 
@@ -61,23 +80,37 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
         -------
         self : object
         """
-        int_x = (isinstance(X, np.ndarray) and X.ndim == 2 and X.size > 0
-                 and np.issubdtype(X.dtype, np.integer))
-        X, y = validate_data(
-            self, X, y, y_numeric=True,
-            # integer input (genotypes) keeps its integer dtype: a float
-            # cast would copy it only to be encoded back to int8 (any
-            # injective per-column coding gives the same Hamming match
-            # counts, so small non-negative values ARE valid codes)
-            dtype="numeric" if int_x else self._validate_dtype,
-            ensure_2d=True)
+        if isinstance(X, torch.Tensor):
+            X, y = self._check_tensor(X, y)
+            self._device_ = X.device
+            self.effective_backend_ = tensor_backend(
+                self.backend, X.device, self._algo_name)
+        else:
+            int_x = (isinstance(X, np.ndarray) and X.ndim == 2
+                     and X.size > 0 and np.issubdtype(X.dtype, np.integer))
+            X, y = validate_data(
+                self, X, y, y_numeric=True,
+                # integer input (genotypes) keeps its integer dtype: a
+                # float cast would copy it only to be encoded back to int8
+                # (any injective per-column coding gives the same Hamming
+                # match counts, so small non-negative values ARE valid
+                # codes)
+                dtype="numeric" if int_x else self._validate_dtype,
+                ensure_2d=True)
         self.n_features_in_ = X.shape[1]
         n_select = self._validate_parameters(X.shape[0], self.n_features_in_)
-        self.effective_backend_ = self._resolve_backend()
+        if not isinstance(X, torch.Tensor):
+            self.effective_backend_ = self._resolve_backend()
+            self._device_ = None
 
-        analysis = self._int_fast_analysis(X) if int_x else None
-        if analysis is None:
-            analysis = self._analyze(X)
+        return self._fit_analysis(self._analysis(X, self._device()), y,
+                                  n_select)
+
+    def _fit_analysis(self, analysis, y, n_select):
+        """The rest of ``fit`` once X is analysed on the fit's device."""
+        if relief_engine(len(y), analysis.is_discrete,
+                         analysis.n_states) == "fused":
+            analysis.codes = None   # the fused engine reads X alone
         self.is_discrete_ = analysis.is_discrete.cpu().numpy()
         scores = self._score(analysis.x_dev, y, analysis, n_select)
         if scores is None:  # the algorithm's early exit set the attributes
@@ -86,41 +119,117 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
         self.top_features_ = np.argsort(scores)[::-1][:n_select]
         return self
 
+    def _column_scorer(self, X, y):
+        """``scorer(active) -> scores`` equal to the
+        ``feature_importances_`` of ``fit(X[:, active], y)``, for TuRF's
+        rounds; X and y are validated host arrays.  X goes to the fit's
+        device and is analysed there once; each call gathers the active
+        columns of that analysis on the device (a column's discreteness,
+        range and state codes do not depend on the other columns) and
+        scores them as ``fit`` would, engine choice included.  None when
+        a discrete column has more than ``MAX_STATES`` states: that
+        analysis keeps no state codes to gather.
+        """
+        self.effective_backend_ = self._resolve_backend()
+        self._device_ = None
+        full = self._analysis(X, self._device())
+        if full.codes is None and bool(full.is_discrete.any()):
+            return None
+        n = X.shape[0]
+
+        def scorer(active):
+            cols = torch.as_tensor(active, device=full.is_discrete.device)
+            disc = full.is_discrete[cols]
+            any_disc, all_disc = bool(disc.any()), bool(disc.all())
+            codes = full.codes[:, cols] if any_disc else None
+            # the largest state count of an active discrete column, as the
+            # analysis of X[:, active] finds it (codes are ranks or values)
+            n_states = (int((codes if all_disc else codes[:, disc]).max())
+                        + 1 if any_disc else 1)
+            sub = FeatureAnalysis(
+                disc, full.recip[cols],
+                None if all_disc else full.x_dev[:, cols], codes, n_states)
+            self.n_features_in_ = len(active)
+            self._fit_analysis(sub, y, self._validate_parameters(
+                n, len(active)))
+            return np.asarray(self.feature_importances_)
+
+        return scorer
+
+    @staticmethod
+    def _check_tensor(X, y):
+        """Shape and NaN checks of a tensor X, on its device (one scalar
+        comes back), and y as a host array."""
+        if X.dim() != 2:
+            raise ValueError(f"Expected 2D array, got {X.dim()}D array "
+                             "instead.")
+        y = np.asarray(y.cpu() if isinstance(y, torch.Tensor) else y)
+        if y.ndim != 1 or y.shape[0] != X.shape[0]:
+            raise ValueError("X and y have inconsistent numbers of samples "
+                             f"or y is not 1-D: {tuple(X.shape)}, "
+                             f"{y.shape}")
+        if X.is_floating_point() and not bool(torch.isfinite(X).all()):
+            raise ValueError("Input X contains NaN." if bool(X.isnan().any())
+                             else "Input X contains infinity.")
+        return X, y
+
     def _score(self, X, y, analysis, n_select):  # pragma: no cover
         raise NotImplementedError
 
-    def _int_fast_analysis(self, X) -> FeatureAnalysis | None:
-        """Encode-free analysis of integer X with values in
-        0..min(discrete_limit, 127) - 1 (the GWAS genotype case), else
-        None.  Every column of such X is discrete by construction
-        (cardinality <= max + 1 <= discrete_limit), and the raw values
-        serve as state codes: they go to the device once as int8 (1 byte
-        a value instead of 4), with n_states = max + 1 and recip all ones.
-        One-byte X is copied as it is and range-checked on the device;
-        wider X is checked on the host and cast to int8 before the copy.
+    def _analysis(self, X, dev: torch.device) -> FeatureAnalysis:
+        """The analysis a fit on ``dev`` makes of validated X: the integer
+        fast path's, else per-feature discreteness, ranges and state codes
+        in float32 on ``dev`` (a host X is uploaded here, once)."""
+        global uploads
+        analysis = self._int_fast_analysis(X, dev)
+        if analysis is not None:
+            return analysis
+        if isinstance(X, torch.Tensor):
+            x_dev = X.to(dtype=torch.float32)
+        else:
+            x_dev = torch.tensor(X, dtype=torch.float32, device=dev)
+            uploads += 1
+        return analyze_features(x_dev, self.discrete_limit)
+
+    def _int_fast_analysis(self, X, dev=None) -> FeatureAnalysis | None:
+        """Encode-free analysis of integer X (an array or a tensor) with
+        values in 0..min(discrete_limit, 127) - 1 (the GWAS genotype
+        case), else None.  Every column of such X is discrete by
+        construction (cardinality <= max + 1 <= discrete_limit), and the
+        raw values serve as state codes: they reach the device once as
+        int8 (1 byte a value instead of 4), with n_states = max + 1 and
+        recip all ones.  A tensor and one-byte X are range-checked on the
+        device; wider host X is checked on the host and cast to int8
+        before the copy.  ``dev`` defaults to the fit's device.
         """
-        dev = self._device()
-        if X.dtype.itemsize == 1:
-            codes = torch.as_tensor(X).to(dev)
+        global uploads
+        dev = self._device() if dev is None else dev
+        if isinstance(X, torch.Tensor):
+            if X.is_floating_point() or X.dtype == torch.bool \
+                    or X.numel() == 0:
+                return None
+            codes = X.to(dev)
+        elif np.issubdtype(X.dtype, np.integer) and X.size > 0:
+            codes = None
+            if X.dtype.itemsize == 1:
+                codes = torch.as_tensor(X).to(dev)
+                uploads += 1
+        else:
+            return None
+        if codes is not None:
             mn, mx = (int(v) for v in torch.aminmax(codes))
         else:
-            codes = None
             mn, mx = int(X.min()), int(X.max())
         if mn < 0 or mx + 1 > min(int(self.discrete_limit), MAX_STATES):
             return None
         if codes is None:
             codes = torch.as_tensor(X.astype(np.int8)).to(dev)
+            uploads += 1
         p = X.shape[1]
         return FeatureAnalysis(
             torch.ones(p, dtype=torch.bool, device=dev),
             torch.ones(p, dtype=torch.float32, device=dev),
             codes=codes.to(torch.int8), n_states=mx + 1)
-
-    def _analyze(self, X) -> FeatureAnalysis:
-        """Per-feature discreteness, ranges and (all-discrete X) state
-        codes, in float32 on the compute device; X is uploaded here, once."""
-        x_dev = torch.tensor(X, dtype=torch.float32, device=self._device())
-        return analyze_features(x_dev, self.discrete_limit)
 
     def transform(self, X):
         """Reduce X to the selected top features."""

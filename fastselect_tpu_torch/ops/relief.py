@@ -17,9 +17,10 @@ engine makes two passes over the data with weights in between:
                (reference ``ReliefF.py:137-220``).
   pass 2:  scores[f] = sum_ij W[i, j] * diff(i, j, f)
 
-The passes live in ``relief_cuda.py`` (any data) and ``relief_discrete.py``
-(all-discrete data); this module holds the rules, which are plain tensor
-code on D's device.  Every rule returns a list of
+The passes live in ``relief_cuda.py`` (any data), ``relief_discrete.py``
+(all-discrete data) and ``relief_hybrid.py`` (mixed data, both halves);
+this module holds the rules, which are plain tensor code on D's device,
+and the routing between the engines.  Every rule returns a list of
 ``(boolean mask (T, n), per-row coefficient (T,))`` terms with
 ``W = sum_k r_k[:, None] * M_k``.  Statistics stay in float32, as in the
 JAX engines: promoting them would move thresholds and flip near masks.
@@ -164,6 +165,23 @@ def pair_weight_rules(D, yi, vi, iid, y_flat, valid_flat, n_real,
     raise ValueError(f"unknown Relief algorithm {algo!r}")
 
 
+def relief_engine(n: int, is_discrete, n_states: int = 0) -> str:
+    """The engine :func:`relief_scores` takes: ``'discrete'``, ``'hybrid'``
+    or ``'fused'``, from the shape and the state count alone.
+
+    ``n_states`` is the largest cardinality of a discrete column (0: not
+    known yet; the engine then encodes the columns and raises above
+    ``MAX_STATES``)."""
+    from ..utils.preprocessing import MAX_STATES
+    from .relief_hybrid import HYBRID_MAX_N
+    disc = torch.as_tensor(is_discrete)
+    if n_states > MAX_STATES or not bool(disc.any()):
+        return "fused"
+    if bool(disc.all()):
+        return "discrete"
+    return "hybrid" if n <= HYBRID_MAX_N else "fused"
+
+
 def relief_scores(
     x,
     y: np.ndarray,
@@ -182,20 +200,25 @@ def relief_scores(
 
     All-discrete data goes to the int8 one-hot GEMM engine of
     ``relief_discrete.py``, scored from ``codes`` when given (X may then be
-    None) or from X encoded there; so does JAX's ``relief_scores``.  Any
-    other input, and all-discrete data with more than ``MAX_STATES``
-    states in a column, goes to the fused engine of ``relief_cuda.py``: on
-    a CUDA device it runs the hand-written kernels, on the CPU their plain
-    PyTorch versions.
+    None) or from X encoded there; so does JAX's ``relief_scores``.  Mixed
+    data with at most ``MAX_STATES`` states in a discrete column and at
+    most ``HYBRID_MAX_N`` samples goes to the hybrid engine of
+    ``relief_hybrid.py``, on every device.  Anything else goes to the
+    fused engine of ``relief_cuda.py``.  The engines run the hand-written
+    kernels on a CUDA device and their plain PyTorch versions on the CPU.
     """
-    from ..utils.preprocessing import MAX_STATES
-    if bool(torch.as_tensor(is_discrete).all()) and n_states <= MAX_STATES:
+    n = (x if codes is None else codes).shape[0]
+    engine = relief_engine(n, is_discrete, n_states)
+    kw = dict(algo=algo, use_star=use_star, n_neighbors=n_neighbors,
+              class_probs=class_probs, device=device)
+    if engine == "discrete":
         from .relief_discrete import relief_discrete_scores
         return relief_discrete_scores(
-            x if codes is None else None, y, algo=algo, use_star=use_star,
-            n_neighbors=n_neighbors, class_probs=class_probs, device=device,
-            codes=codes, n_states=n_states or None)
+            x if codes is None else None, y, codes=codes,
+            n_states=n_states or None, **kw)
+    if engine == "hybrid":
+        from .relief_hybrid import relief_hybrid_scores
+        return relief_hybrid_scores(x, y, recip, is_discrete, codes=codes,
+                                    n_states=n_states or None, **kw)
     from .relief_cuda import relief_fused_scores
-    return relief_fused_scores(
-        x, y, recip, is_discrete, algo=algo, use_star=use_star,
-        n_neighbors=n_neighbors, class_probs=class_probs, device=device)
+    return relief_fused_scores(x, y, recip, is_discrete, **kw)

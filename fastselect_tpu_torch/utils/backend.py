@@ -34,6 +34,23 @@ def resolve_backend(backend: str, estimator_name: str = "estimator") -> str:
     return "cpu"
 
 
+def tensor_backend(backend: str, device: torch.device,
+                   estimator_name: str = "estimator") -> str:
+    """The effective backend of a fit on a tensor: its own device's type.
+
+    ``'auto'`` takes the tensor's device.  Any other backend must name it:
+    it is resolved as :func:`resolve_backend` resolves it (``'cuda'``
+    without a CUDA device raises RuntimeError), and a tensor on another
+    device raises ValueError, since X is never moved.
+    """
+    if backend != "auto" and resolve_backend(
+            backend, estimator_name) != device.type:
+        raise ValueError(
+            f"{estimator_name} was run with backend={backend!r} on a tensor "
+            f"on {device}; move X to that device or use backend='auto'.")
+    return device.type
+
+
 def default_device(backend: str) -> torch.device:
     """The torch.device an effective backend computes on."""
     if backend == "cuda":

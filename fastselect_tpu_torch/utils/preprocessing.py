@@ -9,10 +9,12 @@ reference's numerics (``MultiSURF.py:141-144,409-420``):
   zero-range features pinned to range 1.0.
 
 Everything runs on whatever device X is on.  A fit uploads X once and
-analyses that copy.  When every column is discrete, the same sort gives
-each value's state code (its rank among the column's unique values) and
-the discrete engine scores the int8 codes; otherwise :class:`FeatureAnalysis`
-keeps X as ``x_dev`` so the fused engine scores the same tensor.
+analyses that copy.  The same sort gives each value's state code (its rank
+among the column's unique values): the discrete engine scores all-discrete
+X from the int8 codes alone, and the hybrid engine reads the discrete
+columns of mixed X from them.  :class:`FeatureAnalysis` keeps X as
+``x_dev`` whenever a column is continuous, so the engine scores the same
+tensor.
 """
 
 from __future__ import annotations
@@ -82,8 +84,9 @@ class FeatureAnalysis:
     """Per-feature facts the Relief engine needs, all on one device."""
     is_discrete: torch.Tensor         # (p,) bool
     recip: torch.Tensor               # (p,) float32, 1/range with zero guard
-    x_dev: torch.Tensor | None = None  # (n, p) float32 X the analysis read
-    codes: torch.Tensor | None = None  # (n, p) int8 state codes, all-discrete X
+    x_dev: torch.Tensor | None = None  # (n, p) float32 X, unless all-discrete
+    codes: torch.Tensor | None = None  # (n, p) int8 state codes, X with a
+    #                                    discrete column of <= MAX_STATES
     n_states: int = 0                 # largest cardinality of a discrete column
 
 
@@ -108,17 +111,19 @@ def analyze_features(x: torch.Tensor, discrete_limit: int) -> FeatureAnalysis:
 
     One ``torch.sort`` per column chunk gives the cardinality, the range
     and the state codes.  The analysis runs in float32, the engine's
-    compute type.  All-discrete X with at most ``MAX_STATES`` states per
-    column comes back as ``codes`` (as ``fastselect_tpu``'s
-    ``encode_discrete`` would give them); any other X is kept as ``x_dev``
-    and gets no codes.  ``n_states`` is the largest cardinality over the
+    compute type.  X with a discrete column, and at most ``MAX_STATES``
+    states in each, comes back with ``codes`` for every column (as
+    ``fastselect_tpu``'s ``encode_discrete`` would give them; only the
+    discrete columns' codes are meaningful).  X with a continuous column
+    is kept as ``x_dev``: all-discrete X is scored from its codes alone,
+    mixed X from both.  ``n_states`` is the largest cardinality over the
     discrete columns (1 when there is none).
     """
     x = x.to(torch.float32)
     codes, n_unique, ranges = encode_columns(x)
     is_disc = n_unique <= discrete_limit
     n_states = int(n_unique[is_disc].max()) if bool(is_disc.any()) else 1
-    if bool(is_disc.all()) and n_states <= MAX_STATES:
-        return FeatureAnalysis(is_disc, _recip(ranges), codes=codes,
-                               n_states=n_states)
-    return FeatureAnalysis(is_disc, _recip(ranges), x, n_states=n_states)
+    if not bool(is_disc.any()) or n_states > MAX_STATES:
+        codes = None
+    x_dev = None if codes is not None and bool(is_disc.all()) else x
+    return FeatureAnalysis(is_disc, _recip(ranges), x_dev, codes, n_states)

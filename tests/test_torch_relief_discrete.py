@@ -153,7 +153,8 @@ def test_codes_match_encode_discrete(f_chunk, rng):
 @pytest.mark.parametrize("chunk_elems", [1, 40, 1 << 26])
 def test_analysis_codes_match_jax(monkeypatch, chunk_elems, rng):
     """All-discrete X: the analysis returns JAX's codes and n_states and
-    no float copy; mixed X gets no codes."""
+    no float copy; mixed X keeps its float copy and gets the same codes
+    for its discrete columns (the hybrid engine reads them)."""
     monkeypatch.setattr(TP, "_SORT_CHUNK_ELEMS", chunk_elems)
     x = (rng.randint(0, 4, (20, 7)) * 1.5 - 2).astype(np.float32)
     fa = TP.analyze_features(torch.from_numpy(x), 10)
@@ -162,7 +163,10 @@ def test_analysis_codes_match_jax(monkeypatch, chunk_elems, rng):
     assert_array_equal(fa.codes.numpy(), ref_codes)
     x[:, 3] = rng.rand(20)
     fa = TP.analyze_features(torch.from_numpy(x), 10)
-    assert fa.codes is None and fa.x_dev is not None and fa.n_states == 4
+    assert fa.x_dev is not None and fa.n_states == 4
+    disc = np.arange(7) != 3
+    assert_array_equal(fa.is_discrete.numpy(), disc)
+    assert_array_equal(fa.codes.numpy()[:, disc], ref_codes[:, disc])
 
 
 def test_analysis_from_jax_carries_codes(rng):
@@ -267,8 +271,9 @@ def test_gemm_ops_counts_every_product(rng):
 
 def test_fits_route_by_data(monkeypatch, rng):
     """All-discrete fits go through the int8 GEMM engine and never reach
-    a fused-pass wrapper; mixed and continuous fits take the fused
-    engine and run no GEMM."""
+    a fused-pass wrapper; mixed fits take the hybrid engine (GEMMs and the
+    continuous passes, not the fused engine); continuous fits take the
+    fused engine and run no GEMM."""
     from fastselect_tpu_torch import MultiSURF, ReliefF, SURF
 
     calls = {"fused": 0, "pass1": 0, "pass2": 0}
@@ -290,13 +295,17 @@ def test_fits_route_by_data(monkeypatch, rng):
     mixed = X.astype(np.float64)
     mixed[:, 5:] = rng.rand(50, 7)
     for est in (MultiSURF(), SURF(), ReliefF()):
-        for data, discrete in ((X, True), (X.astype(np.float32), True),
-                               (mixed, False), (rng.rand(50, 12), False)):
+        for data, route in ((X, "discrete"),
+                            (X.astype(np.float32), "discrete"),
+                            (mixed, "hybrid"), (rng.rand(50, 12), "fused")):
             TD.reset_gemm_ops()
             calls.update(fused=0, pass1=0, pass2=0)
             est.set_params(backend="cpu").fit(data, y)
-            if discrete:
+            if route == "discrete":
                 assert TD.gemm_ops > 0 and not any(calls.values())
+            elif route == "hybrid":
+                assert TD.gemm_ops > 0 and calls["fused"] == 0
+                assert calls["pass1"] > 0 and calls["pass2"] > 0
             else:
                 assert TD.gemm_ops == 0 and min(calls.values()) > 0
 

@@ -8,12 +8,20 @@ Run from the repository root with one CUDA device visible:
 Phases, one or two lines each on stdout:
 
 1. environment: torch, CUDA, the card and its power limit, nvcc, triton;
-2. build: ``nvcc`` compiles ``fastselect_tpu_torch/csrc/*.cu`` for sm_90a;
+2. build: ``nvcc`` compiles ``fastselect_tpu_torch/csrc/*.cu`` for sm_90a,
+   and ptxas's registers and spills of every kernel;
 3. each kernel against its plain PyTorch version on the card, at ragged
-   shapes (square and rectangular focal blocks), then both timed with CUDA
-   events at the shapes the main path gives them;
+   shapes (square and rectangular focal blocks; for the continuous
+   kernels also a shape ragged in nb, n and p, and large-p's 128 x 128 x
+   100,000, whose pass 1 splits its features), continuous pass 1 bit for
+   bit and pass 2 the same over two launches; then each kernel timed with
+   CUDA events at the shapes the main path gives it and with features
+   padded to 32 as the engines once padded them (p = 128 and 224), for
+   comparison, the continuous ones also at mixed-square's
+   continuous half, beside its bound, its plain version and, for
+   continuous pass 1, ``torch.cdist``;
 4. ``MultiSURF().fit`` at the upstream reference's large-n point,
-   50,000 samples x 100 continuous features;
+   50,000 samples x 100 continuous features, first and warm;
 5. the same at its large-p point, 100 samples x 100,000 features;
 6. a small mixed fit (2,000 x 200 with 40 integer-valued columns) on the
    hybrid engine, a mixed fit with a 150-state discrete column on the
@@ -58,7 +66,8 @@ must launch the continuous kernels and the int8 GEMMs and no ``MIXED``
 kernel, and is held against the fused engine with the ``MIXED`` kernels
 on the same rows in the hybrid's order.  Any failed check raises, so the
 script exits non-zero; it also fails when no CUDA device is present.  The
-line before the last is a JSON summary of the kernels; the last line is
+line before the last is a JSON summary of the kernels (launches, errors,
+times, bounds and registers, per timed shape); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -85,16 +94,23 @@ from fastselect_tpu_torch.utils.preprocessing import analyze_features
 
 # Kernel name -> (source, Pallas kernel it replaces)
 KERNELS = {
-    "relief_pass1_cont": ("fastselect_tpu_torch/csrc/relief_pass1.cu",
+    "relief_pass1_cont": ("fastselect_tpu_torch/csrc/relief_pass1_cont.cu",
                           "fastselect_tpu/ops/relief_pallas.py:82"),
     "relief_pass1_mixed": ("fastselect_tpu_torch/csrc/relief_pass1.cu",
                            "fastselect_tpu/ops/relief_pallas.py:63"),
-    "relief_pass2_cont": ("fastselect_tpu_torch/csrc/relief_pass2.cu",
+    "relief_pass2_cont": ("fastselect_tpu_torch/csrc/relief_pass2_cont.cu",
                           "fastselect_tpu/ops/relief_pallas.py:126"),
     "relief_pass2_mixed": ("fastselect_tpu_torch/csrc/relief_pass2.cu",
                            "fastselect_tpu/ops/relief_pallas.py:103"),
 }
-D_ATOL = 1e-4        # pass 1 against its plain version (expected: 0)
+# __global__ functions of each kernel, as ptxas names them (mangled)
+KERNEL_FUNCTIONS = {"relief_pass1_cont": ("dist_kernel_cont",
+                                          "split_sum_kernel"),
+                    "relief_pass1_mixed": ("dist_kernelILb1",),
+                    "relief_pass2_cont": ("accum_kernel_cont",),
+                    "relief_pass2_mixed": ("accum_kernelILb1",)}
+D_ATOL = 1e-4        # mixed pass 1 against its plain version (expected: 0);
+                     # continuous pass 1 must equal its plain version
 SCORE_RTOL = 1e-3    # pass 2 against its plain version, relative to max|s|
 FIT_ATOL = 1e-4      # fitted scores against the plain-pass engine
 ORACLE_ATOL = 2e-6   # against tests/oracles.py, as tests/test_multisurf.py
@@ -103,6 +119,8 @@ DEVICE_FIT_ATOL = 1e-6  # a tensor fit against the host-array fit (expected: 0)
 TURF_ATOL = 1e-5     # TuRF's fast scorers against its re-fitting loop
 CHI2_RTOL = 1e-4     # chi2 on the card against the float64 host path
 INT8_PEAK_TOPS = 1979.0  # H100 SXM dense int8, NVIDIA's data sheet
+FP32_PEAK_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores (700 W)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 ALGO = {"MultiSURF": "multisurf", "SURF": "surf", "ReliefF": "relieff"}
 
 
@@ -258,10 +276,11 @@ def timed_fit(dev, est, X, y):
 
 
 def fit_phase(dev, label, X, y, must_launch, n_select=10, make=MultiSURF,
-              **params):
-    """Fit through the estimator, check that it launched the kernels named
-    in must_launch, then hold it against the plain-pass engine on the
-    card.  Returns the fitted estimator and the fit's seconds."""
+              warm=0, **params):
+    """Fit through the estimator (then ``warm`` more, timed), check that it
+    launched the kernels named in must_launch, then hold it against the
+    plain-pass engine on the card.  Returns the fitted estimator and the
+    first fit's seconds."""
     est = make(n_features_to_select=n_select, **params)
     y_enc = np.unique(y, return_inverse=True)[1]
     kw = engine_args(est, y_enc)
@@ -269,6 +288,8 @@ def fit_phase(dev, label, X, y, must_launch, n_select=10, make=MultiSURF,
     before = dict(rc.launches)
     est, fit_s, peak_gb = timed_fit(dev, est, X, y)
     moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    warm_s = [timed_fit(dev, make(n_features_to_select=n_select, **params),
+                        X, y)[1] for _ in range(warm)]
     s = est.feature_importances_
     check(est.effective_backend_ == "cuda", f"{label}: effective_backend_")
     for name in must_launch:
@@ -289,7 +310,8 @@ def fit_phase(dev, label, X, y, must_launch, n_select=10, make=MultiSURF,
     check(np.array_equal(est.top_features_, ref_top),
           f"{label}: top_features_ {est.top_features_} vs {ref_top}")
     print(f"{label}: {type(est).__name__} X {X.shape[0]}x{X.shape[1]} fit "
-          f"{fit_s:.4f} s (plain-pass engine {ref_s:.4f} s); n_pad "
+          f"{fit_s:.4f} s{''.join(f', warm {t:.4f} s' for t in warm_s)} "
+          f"(plain-pass engine {ref_s:.4f} s); n_pad "
           f"{plan.n_pad} p_pad {plan.p_pad} nb {plan.nb} "
           f"({plan.n_pad // plan.nb} blocks); peak {peak_gb:.2f} GB; "
           f"launches {moved}; max |scores - plain| {err:.3e}; top_features_ "
@@ -669,6 +691,144 @@ def chi2_phase(dev, n=2000, p=200000, c=5):
 
 
 # ---------------------------------------------------------------------------
+# The kernels alone
+# ---------------------------------------------------------------------------
+
+def ptxas_usage():
+    """Kernel name -> [(function, registers, spill bytes)] from ptxas."""
+    out = {name: [] for name in KERNELS}
+    for mangled, regs, spill in _build.ptxas_report():
+        for name, fns in KERNEL_FUNCTIONS.items():
+            fn = next((f for f in fns if f in mangled), None)
+            if fn is not None:
+                out[name].append((fn.removesuffix("ILb1"), regs, spill))
+    return out
+
+
+def kernel_checks(dev):
+    """Each kernel against its plain version on the card: max |error| by
+    kernel.  Continuous pass 1 must equal its plain version bit for bit
+    (the feature ranges of ``pass1_splits`` included), and every pass 2
+    must give the same bits over two launches."""
+    err = {k: 0.0 for k in KERNELS}
+    cases = [(tag, label, 1000, 300, nb, off)   # (n, p, nb, first row)
+             for tag in ("cont", "mixed")
+             for label, nb, off in (("square", 1000, 0),
+                                    ("rectangular", 777, 100))]
+    cases += [("cont", "ragged", 1004, 44, 333, 7),
+              ("cont", "large-p", 128, 100000, 128, 0)]
+    for tag, label, n, p, nb, off in cases:
+        mixed = tag == "mixed"
+        xp, recip, disc = random_inputs(dev, n, p, 60 if mixed else 0,
+                                        seed=1)
+        xi = xp if nb == n else xp[off:off + nb].contiguous()
+        k1, k2 = f"relief_pass1_{tag}", f"relief_pass2_{tag}"
+        before = dict(rc.launches)
+        D = rc.dist_matrix(xp, recip, disc, xi=xi, mixed=mixed)
+        D_ref = rc.dist_matrix_ref(xp, recip, disc, xi=xi, mixed=mixed)
+        W = torch.rand(nb, n, device=dev) - 0.5
+        s = rc.accumulate(xp, W, recip, disc, xi=xi, mixed=mixed)
+        s_again = rc.accumulate(xp, W, recip, disc, xi=xi, mixed=mixed)
+        s_ref = rc.accumulate_ref(xp, W, recip, disc, xi=xi, mixed=mixed)
+        torch.cuda.synchronize()
+        d_err = (D - D_ref).abs().max().item()
+        s_err = (s - s_ref).abs().max().item()
+        s_rel = s_err / s_ref.abs().max().item()
+        err[k1] = max(err[k1], d_err)
+        err[k2] = max(err[k2], s_err)
+        where = f"{tag} {label} xi {nb}x{p} vs xp {n}x{p}"
+        check(d_err == 0 if not mixed else d_err <= D_ATOL,
+              f"pass1 {where}: |D| err {d_err}")
+        check(s_rel <= SCORE_RTOL, f"pass2 {where}: relative err {s_rel}")
+        check(torch.equal(s, s_again), f"pass2 {where}: two launches differ")
+        check(rc.launches[k1] == before[k1] + 1, f"{k1} counter")
+        check(rc.launches[k2] == before[k2] + 2, f"{k2} counter")
+        ranges = 1 if mixed else len(rc.pass1_splits(nb, n, p))
+        print(f"kernels {where} ({ranges} feature ranges): max |D - ref| "
+              f"{d_err:.3e}, max |s - ref| {s_err:.3e} (relative "
+              f"{s_rel:.3e}), pass 2 equal over two launches", flush=True)
+        del xp, xi, D, D_ref, W
+        torch.cuda.empty_cache()
+    return err
+
+
+def kernel_bound(pass2, nb, n, p):
+    """(ms, "operations" or "bytes"): the least time of one launch on an
+    H100 at 700 W.  3 FP32 operations a pair-feature (subtract, scale or
+    weight, add); each input read once and each output written once."""
+    ops_ms = 3 * nb * n * p / FP32_PEAK_FLOPS * 1e3
+    nbytes = 4 * ((nb + n) * p + 2 * p + nb * n + (p if pass2 else 0))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+def kernel_timing(dev):
+    """Kernel name -> one row per timed shape, the main path's first: the
+    kernel's time (CUDA events, mean of 10 launches), its bound, its plain
+    version's time at the main path's shapes and, for continuous pass 1,
+    that of ``torch.cdist(xi * recip, xp * recip, p=1)``, the one PyTorch
+    call that computes the same D (the port never calls it)."""
+    ln = rc.block_plan(50000, 100, dev)
+    lp = rc.block_plan(100, 100000, dev)
+    mx = rc.block_plan(2000, 200, dev)
+    shapes = [  # (tag, label, nb, n, p, discrete columns, time the plain)
+        ("cont", "large-n", ln.nb, ln.n_pad, ln.p_pad, 0, True),
+        ("cont", "large-n, features padded to 32", ln.nb, ln.n_pad, 128,
+         0, False),
+        ("cont", "large-p", lp.nb, lp.n_pad, lp.p_pad, 0, True),
+        ("cont", "mixed-square continuous half", 16384, 16384, 2048, 0,
+         False),
+        ("mixed", "mixed-fused", mx.nb, mx.n_pad, mx.p_pad, 40, True),
+        ("mixed", "mixed-fused, features padded to 32", mx.nb, mx.n_pad,
+         224, 40, False),
+    ]
+    timing = {k: [] for k in KERNELS}
+    for tag, label, nb, n, p, n_disc, plain in shapes:
+        mixed = tag == "mixed"
+        xp, recip, disc = random_inputs(dev, n, p, n_disc, seed=2)
+        xi = xp[:nb]
+        W = torch.rand(nb, n, device=dev) - 0.5
+        ref_reps = 2 if nb * n * p >= 10 ** 9 else 5
+        runs = {
+            "relief_pass1": (
+                lambda: rc.dist_matrix(xp, recip, disc, xi=xi, mixed=mixed),
+                lambda: rc.dist_matrix_ref(xp, recip, disc, xi=xi,
+                                           mixed=mixed)),
+            "relief_pass2": (
+                lambda: rc.accumulate(xp, W, recip, disc, xi=xi,
+                                      mixed=mixed),
+                lambda: rc.accumulate_ref(xp, W, recip, disc, xi=xi,
+                                          mixed=mixed)),
+        }
+        for kname, (kernel, ref) in runs.items():
+            key = f"{kname}_{tag}"
+            library_ms = None
+            if key == "relief_pass1_cont":
+                xs, ps = xi * recip, xp * recip
+                library_ms = cuda_ms(lambda: torch.cdist(xs, ps, p=1), 3)
+                del xs, ps
+                torch.cuda.empty_cache()
+            ms = cuda_ms(kernel, 10)
+            plain_ms = cuda_ms(ref, ref_reps) if plain else None
+            bound_ms, bound_by = kernel_bound(kname == "relief_pass2",
+                                              nb, n, p)
+            shape = f"xi {nb}x{p} vs xp {n}x{p}"
+            timing[key].append(dict(
+                shape=f"{label}: {shape}", ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                share=bound_ms / ms, library_ms=library_ms))
+            lib = ("" if library_ms is None
+                   else f", torch.cdist {library_ms:.4f} ms")
+            ref_s = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
+            print(f"time {key} at {label} ({shape}): kernel {ms:.4f} ms"
+                  f"{ref_s}, bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{100 * bound_ms / ms:.1f}% of it{lib}", flush=True)
+        del xp, xi, W
+        torch.cuda.empty_cache()
+    return timing
+
+# ---------------------------------------------------------------------------
 
 def main():
     t_start = time.perf_counter()
@@ -702,71 +862,15 @@ def main():
     _build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path} "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
+    ptxas = ptxas_usage()
+    for name, rows in ptxas.items():
+        print(f"ptxas {name}: " + "; ".join(
+            f"{fn} {regs} registers, {spill} B spilled"
+            for fn, regs, spill in rows), flush=True)
 
-    # 3. kernels against their plain versions
-    err = {k: 0.0 for k in KERNELS}
-    for mixed in (False, True):
-        tag = "mixed" if mixed else "cont"
-        xp, recip, disc = random_inputs(dev, 1000, 300,
-                                        60 if mixed else 0, seed=1)
-        for nb in (1000, 777):        # square, then a rectangular block
-            xi = xp if nb == 1000 else xp[100:100 + nb].contiguous()
-            before = dict(rc.launches)
-            D = rc.dist_matrix(xp, recip, disc, xi=xi, mixed=mixed)
-            D_ref = rc.dist_matrix_ref(xp, recip, disc, xi=xi, mixed=mixed)
-            W = torch.rand(nb, 1000, device=dev) - 0.5
-            s = rc.accumulate(xp, W, recip, disc, xi=xi, mixed=mixed)
-            s_ref = rc.accumulate_ref(xp, W, recip, disc, xi=xi, mixed=mixed)
-            torch.cuda.synchronize()
-            d_err = (D - D_ref).abs().max().item()
-            s_err = (s - s_ref).abs().max().item()
-            s_rel = s_err / s_ref.abs().max().item()
-            err[f"relief_pass1_{tag}"] = max(err[f"relief_pass1_{tag}"],
-                                             d_err)
-            err[f"relief_pass2_{tag}"] = max(err[f"relief_pass2_{tag}"],
-                                             s_err)
-            check(d_err <= D_ATOL, f"pass1 {tag} nb={nb}: |D| err {d_err}")
-            check(s_rel <= SCORE_RTOL,
-                  f"pass2 {tag} nb={nb}: relative err {s_rel}")
-            for k in (f"relief_pass1_{tag}", f"relief_pass2_{tag}"):
-                check(rc.launches[k] == before[k] + 1, f"{k} counter")
-            print(f"kernels {tag} xi {nb}x300 vs xp 1000x300: max |D - ref| "
-                  f"{d_err:.3e}, max |s - ref| {s_err:.3e} "
-                  f"(relative {s_rel:.3e})", flush=True)
-
-    # timing at the shapes the main path gives each kernel
-    timing = {}
-    shapes = {"cont": [(50000, 100, 0), (100, 100000, 0)],
-              "mixed": [(2000, 200, 40)]}
-    for tag, cases in shapes.items():
-        mixed = tag == "mixed"
-        for n, p, n_disc in cases:
-            plan = rc.block_plan(n, p, dev)
-            xp, recip, disc = random_inputs(dev, plan.n_pad,
-                                            plan.p_pad, n_disc, seed=2)
-            xi = xp[:plan.nb]
-            W = torch.rand(plan.nb, plan.n_pad, device=dev) - 0.5
-            ref_reps = 2 if n * p >= 10 ** 6 else 5
-            row = {
-                "relief_pass1": (
-                    cuda_ms(lambda: rc.dist_matrix(
-                        xp, recip, disc, xi=xi, mixed=mixed), 10),
-                    cuda_ms(lambda: rc.dist_matrix_ref(
-                        xp, recip, disc, xi=xi, mixed=mixed), ref_reps)),
-                "relief_pass2": (
-                    cuda_ms(lambda: rc.accumulate(
-                        xp, W, recip, disc, xi=xi, mixed=mixed), 10),
-                    cuda_ms(lambda: rc.accumulate_ref(
-                        xp, W, recip, disc, xi=xi, mixed=mixed), ref_reps)),
-            }
-            shape = f"xi {plan.nb}x{plan.p_pad} vs xp {plan.n_pad}x{plan.p_pad}"
-            for kname, (ms, plain_ms) in row.items():
-                key = f"{kname}_{tag}"
-                timing.setdefault(key, (ms, plain_ms, shape))
-                print(f"time {key} at {shape} (fit {n}x{p}): kernel "
-                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-            del xp, xi, W
-            torch.cuda.empty_cache()
+    # 3. kernels against their plain versions, then timed
+    err = kernel_checks(dev)
+    timing = kernel_timing(dev)
 
     # 4-6. the main path
     rc.reset_launch_counts()
@@ -774,10 +878,11 @@ def main():
     X_n, y_n = make_classification(n_samples=50000, n_features=100,
                                    n_informative=10, random_state=0)
     X_n = X_n.astype(np.float32)
-    large_n, fit_n = fit_phase(dev, "large-n", X_n, y_n, cont)
+    large_n, fit_n = fit_phase(dev, "large-n", X_n, y_n, cont, warm=2)
     X, y = make_classification(n_samples=100, n_features=100000,
                                random_state=0)
-    _, fit_p = fit_phase(dev, "large-p", X.astype(np.float32), y, cont)
+    _, fit_p = fit_phase(dev, "large-p", X.astype(np.float32), y, cont,
+                         warm=3)
     X, y = make_classification(n_samples=2000, n_features=200,
                                n_informative=10, random_state=1)
     X = X.astype(np.float32)
@@ -887,8 +992,11 @@ def main():
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_launches[name], "max_abs_err": err[name],
-         "ms": timing[name][0], "plain_ms": timing[name][1],
-         "shape": timing[name][2]}
+         **{k: timing[name][0][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "shape": timing[name][0]["shape"], "shapes": timing[name],
+         "registers": [regs for _, regs, _ in ptxas[name]],
+         "spill_bytes": [spill for _, _, spill in ptxas[name]]}
         for name, (src, rep) in KERNELS.items()]}
     print(f"fits: large-n {fit_n:.4f} s, large-p {fit_p:.4f} s, mixed "
           f"{fit_m:.4f} s, mixed-fused {fit_mf:.4f} s, mixed-square "

@@ -4,8 +4,10 @@
 //   diff    = 1[x_if != x_jf]           where disc[f] > 0 (MIXED only)
 //           = |x_if - x_jf| * recip[f]  otherwise
 //
-// Replaces the Pallas kernels `_dist_kernel` (MIXED = true) and
-// `_dist_kernel_cont` (MIXED = false) of fastselect_tpu/ops/relief_pallas.py.
+// Replaces the Pallas kernel `_dist_kernel` of
+// fastselect_tpu/ops/relief_pallas.py; its continuous counterpart
+// `_dist_kernel_cont` is `relief_pass1_cont.cu`.  Only MIXED = true is
+// launched: this is the first port's simple kernel, kept as it was.
 //
 // What bounds it on the H100: FP32 CUDA-core throughput.  The work is
 // O(nb * n * p) and the bytes are O((nb + n) * p + nb * n), and an |a - b|
@@ -21,9 +23,8 @@
 // nb, n and p are masked here: out-of-range features load as x = 0,
 // recip = 0, disc = 0 and add +0.0.
 //
-// Later work (not here): larger micro-tiles tuned for occupancy, cp.async
-// or TMA staging, persistent blocks, and X pre-scaled by recip to drop the
-// multiply.
+// Later work (not here): the register tiling and cp.async staging of
+// `relief_pass1_cont.cu`, and X pre-scaled by recip to drop the multiply.
 
 #include <cuda_runtime.h>
 
@@ -123,28 +124,19 @@ dist_kernel(const float* __restrict__ xi, const float* __restrict__ xp,
 
 }  // namespace
 
-// D (nb, n) = pass 1 of focal rows xi (nb, p) against samples xp (n, p),
-// all float32, row-major and contiguous; recip and disc are (p,).  Launches
-// on `stream` and returns cudaGetLastError() of the launch.
-extern "C" int fs_relief_pass1(const void* xi, const void* xp,
-                               const void* recip, const void* disc, void* d,
-                               int nb, int n, int p, int mixed,
-                               void* stream) {
+// D (nb, n) = mixed pass 1 of focal rows xi (nb, p) against samples xp
+// (n, p), all float32, row-major and contiguous; recip and disc are (p,).
+// Launches on `stream` and returns cudaGetLastError() of the launch.
+extern "C" int fs_relief_pass1_mixed(const void* xi, const void* xp,
+                                     const void* recip, const void* disc,
+                                     void* d, int nb, int n, int p,
+                                     void* stream) {
   const dim3 block(kTX, kTY);
   const dim3 grid((n + kBJ - 1) / kBJ, (nb + kBI - 1) / kBI);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xi_f = static_cast<const float*>(xi);
-  const float* xp_f = static_cast<const float*>(xp);
-  const float* recip_f = static_cast<const float*>(recip);
-  const float* disc_f = static_cast<const float*>(disc);
-  float* d_f = static_cast<float*>(d);
-  if (mixed) {
-    dist_kernel<true><<<grid, block, 0, s>>>(xi_f, xp_f, recip_f, disc_f,
-                                             d_f, nb, n, p);
-  } else {
-    dist_kernel<false><<<grid, block, 0, s>>>(xi_f, xp_f, recip_f, disc_f,
-                                              d_f, nb, n, p);
-  }
+  dist_kernel<true><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xi), static_cast<const float*>(xp),
+      static_cast<const float*>(recip), static_cast<const float*>(disc),
+      static_cast<float*>(d), nb, n, p);
   return static_cast<int>(cudaGetLastError());
 }
 

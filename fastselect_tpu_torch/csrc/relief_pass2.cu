@@ -5,8 +5,10 @@
 // with diff as in pass 1.  The wrapper sums the partials over t in a fixed
 // order, so scores are bitwise identical from run to run: no float atomics.
 //
-// Replaces the Pallas kernels `_accum_kernel` (MIXED = true) and
-// `_accum_kernel_cont` (MIXED = false) of fastselect_tpu/ops/relief_pallas.py.
+// Replaces the Pallas kernel `_accum_kernel` of
+// fastselect_tpu/ops/relief_pallas.py; its continuous counterpart
+// `_accum_kernel_cont` is `relief_pass2_cont.cu`.  Only MIXED = true is
+// launched: this is the first port's simple kernel, kept as it was.
 // The TPU kept one score block resident across a sequential grid and, for
 // a Mosaic layout limit, wrote an (8, ft) block with only row 0 live; here
 // blocks run in any order, so each one owns (32 features x 32 focal rows),
@@ -20,8 +22,8 @@
 // continuous case: recip multiplies the finished sum once).  Each block
 // stages a (32 x 64) W tile and a (64 x 32) X tile per step (16 KB).
 //
-// Later work (not here): a larger feature tile per block, cp.async or TMA
-// staging, persistent blocks, and X pre-scaled by recip.
+// Later work (not here): the register tiling and cp.async staging of
+// `relief_pass2_cont.cu`, and X pre-scaled by recip.
 
 #include <cuda_runtime.h>
 
@@ -122,28 +124,20 @@ accum_kernel(const float* __restrict__ xi, const float* __restrict__ xp,
 
 }  // namespace
 
-// partial (ceil(nb / 32), p) = pass 2 of focal rows xi (nb, p) against
-// samples xp (n, p) under weights w (nb, n), all float32, row-major and
-// contiguous; recip and disc are (p,).  Launches on `stream` and returns
-// cudaGetLastError() of the launch.
-extern "C" int fs_relief_pass2(const void* xi, const void* xp, const void* w,
-                               const void* recip, const void* disc,
-                               void* partial, int nb, int n, int p, int mixed,
-                               void* stream) {
+// partial (ceil(nb / 32), p) = mixed pass 2 of focal rows xi (nb, p)
+// against samples xp (n, p) under weights w (nb, n), all float32,
+// row-major and contiguous; recip and disc are (p,).  Launches on `stream`
+// and returns cudaGetLastError() of the launch.
+extern "C" int fs_relief_pass2_mixed(const void* xi, const void* xp,
+                                     const void* w, const void* recip,
+                                     const void* disc, void* partial, int nb,
+                                     int n, int p, void* stream) {
   const dim3 grid((p + kFT - 1) / kFT, (nb + kIT - 1) / kIT);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xi_f = static_cast<const float*>(xi);
-  const float* xp_f = static_cast<const float*>(xp);
-  const float* w_f = static_cast<const float*>(w);
-  const float* recip_f = static_cast<const float*>(recip);
-  const float* disc_f = static_cast<const float*>(disc);
-  float* partial_f = static_cast<float*>(partial);
-  if (mixed) {
-    accum_kernel<true><<<grid, kThreads, 0, s>>>(
-        xi_f, xp_f, w_f, recip_f, disc_f, partial_f, nb, n, p);
-  } else {
-    accum_kernel<false><<<grid, kThreads, 0, s>>>(
-        xi_f, xp_f, w_f, recip_f, disc_f, partial_f, nb, n, p);
-  }
+  accum_kernel<true><<<grid, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xi), static_cast<const float*>(xp),
+      static_cast<const float*>(w), static_cast<const float*>(recip),
+      static_cast<const float*>(disc), static_cast<float*>(partial), nb, n,
+      p);
   return static_cast<int>(cudaGetLastError());
 }

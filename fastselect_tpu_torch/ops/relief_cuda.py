@@ -3,15 +3,18 @@
 Counterpart of ``fastselect_tpu/ops/relief_pallas.py``.  The Pallas
 kernels of that module become the Hopper kernels of ``csrc/``:
 
-  pass 1  ``relief_pass1.cu``  D[i, j] = sum_f diff(i, j, f), for a focal
-          block of rows against all samples (``_dist_kernel`` and
-          ``_dist_kernel_cont``);
-  pass 2  ``relief_pass2.cu``  scores[f] = sum_ij W[i, j] * diff(i, j, f)
-          (``_accum_kernel`` and ``_accum_kernel_cont``).
+  pass 1  D[i, j] = sum_f diff(i, j, f), for a focal block of rows against
+          all samples: ``relief_pass1_cont.cu`` (``_dist_kernel_cont``) and
+          ``relief_pass1.cu`` (``_dist_kernel``);
+  pass 2  scores[f] = sum_ij W[i, j] * diff(i, j, f):
+          ``relief_pass2_cont.cu`` (``_accum_kernel_cont``) and
+          ``relief_pass2.cu`` (``_accum_kernel``).
 
 ``MIXED`` kernels apply Hamming distance to the discrete columns; the
-continuous ones skip the per-feature select.  Between the passes the pair
-weights W come from D by the rules of ``relief.pair_weight_rules``.
+continuous ones skip the per-feature select, and take rows that are
+16-byte aligned (p a multiple of 4, and n too in pass 2), so every engine
+pads features to ``TILE_FEATURES``.  Between the passes the pair weights W
+come from D by the rules of ``relief.pair_weight_rules``.
 
 Each wrapper (:func:`dist_matrix`, :func:`accumulate`) launches its kernel
 for a CUDA tensor, or raises: it never falls back.  For a CPU tensor it
@@ -34,11 +37,36 @@ import torch
 from .. import _build
 from .relief import _sum_rules, pair_weight_rules
 
-# Samples pad to the pass-1 tile (kBI == kBJ in relief_pass1.cu), features
-# to its feature chunk (kBF); padded rows and features weigh nothing.
+# Samples pad to 64 rows (the mixed pass-1 tile, kBI == kBJ in
+# relief_pass1.cu; the continuous kernels mask ragged rows themselves),
+# features to the continuous kernels' 16-byte vector width; padded rows
+# and features weigh nothing.
 TILE_ROWS = 64
-TILE_FEATURES = 32
-_PASS2_ROWS = 32   # focal rows per pass-2 block (kIT in relief_pass2.cu)
+TILE_FEATURES = 4
+_PASS2_MIXED_ROWS = 32   # focal rows per block (kIT in relief_pass2.cu)
+
+# Continuous pass 1 (relief_pass1_cont.cu): a block tile of kTile x kTile
+# pairs.  When the tiles cannot fill the card (p >> n), the features split
+# into ranges summed apart, so that the blocks reach _PASS1_TARGET_BLOCKS
+# (two resident blocks on each of the H100's 132 SMs), each range holding
+# at least _PASS1_MIN_SPLIT features (a multiple of 4): below that, writing
+# and re-reading a partial D costs more than its features' arithmetic.
+_PASS1_TILE = 128
+_PASS1_TARGET_BLOCKS = 264
+_PASS1_MIN_SPLIT = 128
+# Continuous pass 2 (relief_pass2_cont.cu): a thread holds 8 focal rows of
+# one float4 feature group; a block is at most 32 groups by 32 row groups
+# and 256 threads.  Sample spans of at least _PASS2_MIN_SPAN samples (a
+# multiple of the 64-sample stage) are added when the focal and feature
+# tiles give fewer than _PASS2_TARGET_BLOCKS blocks (four waves of two
+# resident blocks on 132 SMs).
+_PASS2_ROWS_PER_THREAD = 8
+_PASS2_MAX_GROUPS = 32
+_PASS2_MAX_ROW_GROUPS = 32
+_PASS2_MAX_THREADS = 256
+_PASS2_STAGE = 64
+_PASS2_MIN_SPAN = 1024
+_PASS2_TARGET_BLOCKS = 1056
 
 # Bytes per (focal row, sample) pair a block needs at its peak: D and W,
 # plus the rules' float32 and bool temporaries (_rules_multisurf holds
@@ -65,6 +93,51 @@ def reset_launch_counts() -> None:
         launches[name] = 0
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pass1_splits(nb: int, n: int, p: int) -> list[tuple[int, int]]:
+    """Feature ranges [f0, f1) that continuous pass 1 sums apart, in order,
+    for focal rows nb, samples n and features p (a multiple of 4).
+
+    From the shape alone, never the device, so the plain version on the
+    CPU takes the same ranges as the kernel.  One range unless the
+    (nb, n) tile grid leaves the card short of blocks and p is large."""
+    tiles = _cdiv(nb, _PASS1_TILE) * _cdiv(n, _PASS1_TILE)
+    count = max(1, min(_PASS1_TARGET_BLOCKS // tiles, p // _PASS1_MIN_SPLIT))
+    width = _round_up(_cdiv(p, count), 4)
+    return [(f0, min(p, f0 + width)) for f0 in range(0, p, width)]
+
+
+class Pass2Plan(NamedTuple):
+    groups: int   # float4 feature groups per block
+    rows: int     # row groups per block (groups * rows threads)
+    spans: int    # sample spans
+    span: int     # samples per span (the last one ragged)
+
+    @property
+    def focal_rows(self) -> int:   # focal rows per block
+        return _PASS2_ROWS_PER_THREAD * self.rows
+
+
+def pass2_plan(nb: int, n: int, p: int) -> Pass2Plan:
+    """Block shape and sample spans of continuous pass 2 for focal rows
+    nb, samples n and features p (a multiple of 4), from the shape alone.
+
+    Feature tiles are balanced, so that a p of 100 runs as one tile of 25
+    groups (250 threads) rather than 32 groups with 7 idle."""
+    g = p // 4
+    ftiles = _cdiv(g, _PASS2_MAX_GROUPS)
+    groups = _cdiv(g, ftiles)
+    rows = min(_PASS2_MAX_THREADS // groups, _PASS2_MAX_ROW_GROUPS)
+    blocks = ftiles * _cdiv(nb, _PASS2_ROWS_PER_THREAD * rows)
+    spans = max(1, min(_cdiv(_PASS2_TARGET_BLOCKS, blocks),
+                       n // _PASS2_MIN_SPAN))
+    span = _round_up(_cdiv(n, spans), _PASS2_STAGE)
+    return Pass2Plan(groups, rows, _cdiv(n, span), span)
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
@@ -85,23 +158,35 @@ def _feature_chunk(nb: int, n: int) -> int:
     return max(1, _REF_CHUNK_ELEMS // max(1, nb * n))
 
 
+def _dist_sum(xiT, xpT, recip, disc, f0, f1, mixed):
+    """sum over features f0..f1-1 of diff(i, j, f), added in order from
+    0.0 with separately rounded multiply and add: (nb, n)."""
+    nb, n = xiT.shape[1], xpT.shape[1]
+    D = torch.zeros((nb, n), dtype=torch.float32, device=xpT.device)
+    fc = _feature_chunk(nb, n)
+    for c0 in range(f0, f1, fc):
+        c1 = min(f1, c0 + fc)
+        val = _diff_chunk(xiT[c0:c1], xpT[c0:c1], recip[c0:c1],
+                          disc[c0:c1], mixed)
+        for q in range(c1 - c0):
+            D.add_(val[q])
+    return D
+
+
 def dist_matrix_ref(xp, recip, disc, xi=None, *, mixed):
     """Plain version of :func:`dist_matrix`.
 
-    Features are added one at a time in order, with separately rounded
-    multiply and add, exactly as each thread of ``relief_pass1.cu`` does,
-    so the kernel's D equals this one bit for bit."""
+    Each feature range of the kernel's plan (one range for the mixed
+    kernel, :func:`pass1_splits` for the continuous one) is summed from
+    0.0 in feature order, then the ranges are added in order, exactly as
+    the kernels do, so the kernel's D equals this one bit for bit."""
     xi = xp if xi is None else xi
     nb, n, p = xi.shape[0], xp.shape[0], xp.shape[1]
-    D = torch.zeros((nb, n), dtype=torch.float32, device=xp.device)
     xiT, xpT = xi.t(), xp.t()
-    fc = _feature_chunk(nb, n)
-    for f0 in range(0, p, fc):
-        f1 = min(p, f0 + fc)
-        val = _diff_chunk(xiT[f0:f1], xpT[f0:f1], recip[f0:f1],
-                          disc[f0:f1], mixed)
-        for q in range(f1 - f0):
-            D.add_(val[q])
+    splits = [(0, p)] if mixed else pass1_splits(nb, n, p)
+    D = _dist_sum(xiT, xpT, recip, disc, *splits[0], mixed)
+    for f0, f1 in splits[1:]:
+        D.add_(_dist_sum(xiT, xpT, recip, disc, f0, f1, mixed))
     return D
 
 
@@ -124,9 +209,10 @@ def accumulate_ref(xp, W, recip, disc, xi=None, *, mixed):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_inputs(xp, xi, recip, disc, W=None):
+def _check_inputs(xp, xi, recip, disc, W=None, *, mixed):
     """Raise unless every input is a contiguous float32 tensor of the
-    expected shape on one device; returns (nb, n, p)."""
+    expected shape on one device, with rows 16-byte aligned for the
+    continuous kernels; returns (nb, n, p)."""
     named = {"xp": xp, "xi": xi, "recip": recip, "disc": disc}
     if W is not None:
         named["W"] = W
@@ -152,6 +238,14 @@ def _check_inputs(xp, xi, recip, disc, W=None):
         raise ValueError("empty input")
     if xp.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {xp.device}")
+    if not mixed:
+        rows = [xp, xi, recip] + ([W] if W is not None else [])
+        if (p % 4 or (W is not None and n % 4)
+                or any(t.data_ptr() % 16 for t in rows)):
+            raise ValueError(
+                f"the continuous kernels take 16-byte aligned rows (p, and "
+                f"n for W, multiples of 4, data 16-byte aligned); got "
+                f"nb, n, p = {nb}, {n}, {p}: pad features to TILE_FEATURES")
     return nb, n, p
 
 
@@ -159,21 +253,34 @@ def dist_matrix(xp, recip, disc, xi=None, *, mixed):
     """Pass 1: distance rows D (nb, n) of focal rows ``xi`` (nb, p) against
     all samples ``xp`` (n, p); square (``xi = xp``) by default.
 
-    ``mixed=False`` selects the all-continuous kernel (``disc`` is ignored).
+    ``mixed=False`` selects the all-continuous kernel (``disc`` is
+    ignored), which sums the feature ranges of :func:`pass1_splits` apart
+    and then in order.
     """
     xi = xp if xi is None else xi
-    nb, n, p = _check_inputs(xp, xi, recip, disc)
+    nb, n, p = _check_inputs(xp, xi, recip, disc, mixed=mixed)
     if xp.device.type == "cpu":
         return dist_matrix_ref(xp, recip, disc, xi, mixed=mixed)
     lib = _build.load()
     D = torch.empty((nb, n), dtype=torch.float32, device=xp.device)
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
     with torch.cuda.device(xp.device):
-        err = lib.fs_relief_pass1(
-            xi.data_ptr(), xp.data_ptr(), recip.data_ptr(), disc.data_ptr(),
-            D.data_ptr(), nb, n, p, int(mixed),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "relief_pass1")
-    launches["relief_pass1_mixed" if mixed else "relief_pass1_cont"] += 1
+        if mixed:
+            err = lib.fs_relief_pass1_mixed(
+                xi.data_ptr(), xp.data_ptr(), recip.data_ptr(),
+                disc.data_ptr(), D.data_ptr(), nb, n, p, stream)
+        else:
+            splits = pass1_splits(nb, n, p)
+            part = (torch.empty((len(splits), nb, n), dtype=torch.float32,
+                                device=xp.device) if len(splits) > 1
+                    else None)
+            err = lib.fs_relief_pass1_cont(
+                xi.data_ptr(), xp.data_ptr(), recip.data_ptr(),
+                D.data_ptr(), 0 if part is None else part.data_ptr(), nb, n,
+                p, splits[0][1], len(splits), stream)
+    name = "relief_pass1_mixed" if mixed else "relief_pass1_cont"
+    _build.check(err, name)
+    launches[name] += 1
     return D
 
 
@@ -181,23 +288,35 @@ def accumulate(xp, W, recip, disc, xi=None, *, mixed):
     """Pass 2: per-feature scores (p,) from pair weights ``W`` (nb, n) of
     focal rows ``xi`` (default ``xp``) against all samples ``xp``.
 
-    The kernel writes one partial row per 32 focal rows; they are summed
-    here in a fixed order, so the result is the same from run to run.
+    The kernel writes one partial row per focal tile (and, continuous, per
+    sample span of :func:`pass2_plan`); they are summed here in a fixed
+    order, so the result is the same from run to run.
     """
     xi = xp if xi is None else xi
-    nb, n, p = _check_inputs(xp, xi, recip, disc, W)
+    nb, n, p = _check_inputs(xp, xi, recip, disc, W, mixed=mixed)
     if xp.device.type == "cpu":
         return accumulate_ref(xp, W, recip, disc, xi, mixed=mixed)
     lib = _build.load()
-    partial = torch.empty((-(-nb // _PASS2_ROWS), p), dtype=torch.float32,
-                          device=xp.device)
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
     with torch.cuda.device(xp.device):
-        err = lib.fs_relief_pass2(
-            xi.data_ptr(), xp.data_ptr(), W.data_ptr(), recip.data_ptr(),
-            disc.data_ptr(), partial.data_ptr(), nb, n, p, int(mixed),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "relief_pass2")
-    launches["relief_pass2_mixed" if mixed else "relief_pass2_cont"] += 1
+        if mixed:
+            partial = torch.empty((_cdiv(nb, _PASS2_MIXED_ROWS), p),
+                                  dtype=torch.float32, device=xp.device)
+            err = lib.fs_relief_pass2_mixed(
+                xi.data_ptr(), xp.data_ptr(), W.data_ptr(), recip.data_ptr(),
+                disc.data_ptr(), partial.data_ptr(), nb, n, p, stream)
+        else:
+            plan = pass2_plan(nb, n, p)
+            partial = torch.empty(
+                (_cdiv(nb, plan.focal_rows) * plan.spans, p),
+                dtype=torch.float32, device=xp.device)
+            err = lib.fs_relief_pass2_cont(
+                xi.data_ptr(), xp.data_ptr(), W.data_ptr(), recip.data_ptr(),
+                partial.data_ptr(), nb, n, p, plan.groups, plan.rows,
+                plan.span, stream)
+    name = "relief_pass2_mixed" if mixed else "relief_pass2_cont"
+    _build.check(err, name)
+    launches[name] += 1
     return partial.sum(dim=0)
 
 

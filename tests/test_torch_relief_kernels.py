@@ -166,7 +166,8 @@ def test_wrappers_use_plain_versions_on_cpu_only(rng):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "contiguous", "shape", "W",
-                                 "empty"])
+                                 "empty", "p_not_4", "unaligned",
+                                 "n_not_4"])
 def test_wrappers_reject_bad_inputs(bad, rng):
     xp, recip2, disc2 = _padded(rng, False)
     xp_t, r, d = _t(xp), _t(recip2[0]), _t(disc2[0])
@@ -179,11 +180,201 @@ def test_wrappers_reject_bad_inputs(bad, rng):
         r = r[:-1]
     elif bad == "W":
         W = W[:, :-1]
-    else:
+    elif bad == "empty":
         xp_t = xp_t[:0]
         W = W[:0]
+    elif bad == "p_not_4":      # rows of 127 floats are not 16-byte aligned
+        xp_t, r, d = xp_t[:, :-1].contiguous(), r[:-1], d[:-1]
+    elif bad == "unaligned":    # contiguous, but 4 bytes past an alignment
+        xp_t = torch.empty(N * P_PAD + 1)[1:].view(N, P_PAD).copy_(xp_t)
+    else:                       # W rows of 39 floats
+        xp_t, W = xp_t[:-1], W[:-1, :-1]
     with pytest.raises((TypeError, ValueError)):
-        if bad == "W":
+        if bad in ("W", "n_not_4"):
             RC.accumulate(xp_t, W, r, d, mixed=False)
         else:
             RC.dist_matrix(xp_t, r, d, mixed=False)
+
+
+# ---------------------------------------------------------------------------
+# The continuous kernels' plans: feature ranges of pass 1, blocks of pass 2
+# ---------------------------------------------------------------------------
+
+def _no_device(monkeypatch):
+    """Make any question to a CUDA device fail: the plans read shapes only."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plan asked the device")
+    for name in ("is_available", "mem_get_info", "get_device_properties",
+                 "device_count", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+
+
+@pytest.mark.parametrize("nb,n,p,one", [
+    (25024, 50048, 100, True),     # large-n focal block
+    (16384, 16384, 2048, True),    # mixed-square's continuous half
+    (128, 128, 100000, False),     # large-p
+    (16, 16, 8192, False),
+    (1000, 1000, 300, False),      # chip_smoke.py's checks: 64 tiles
+    (333, 1004, 44, True),         # ragged in nb, n and p
+])
+def test_pass1_splits(monkeypatch, nb, n, p, one):
+    _no_device(monkeypatch)
+    splits = RC.pass1_splits(nb, n, p)
+    assert (len(splits) == 1) == one
+    assert splits[0][0] == 0 and splits[-1][1] == p
+    for (f0, f1), (g0, _) in zip(splits, splits[1:] + [(p, p)]):
+        assert f1 == g0 and f1 > f0 and f0 % 4 == 0 and f1 % 4 == 0
+    tiles = -(-nb // RC._PASS1_TILE) * -(-n // RC._PASS1_TILE)
+    assert len(splits) * tiles <= max(tiles, RC._PASS1_TARGET_BLOCKS)
+    if not one:
+        assert all(f1 - f0 >= RC._PASS1_MIN_SPLIT for f0, f1 in splits[:-1])
+
+
+@pytest.mark.parametrize("nb,n,p,groups,ftiles", [
+    (25024, 50048, 100, 25, 1),    # all of p = 100 in one block
+    (25024, 50048, 128, 32, 1),
+    (16384, 16384, 2048, 32, 16),
+    (128, 128, 100000, 32, 782),
+    (333, 1004, 44, 11, 1),
+])
+def test_pass2_plan(monkeypatch, nb, n, p, groups, ftiles):
+    _no_device(monkeypatch)
+    plan = RC.pass2_plan(nb, n, p)
+    threads = plan.groups * plan.rows
+    assert plan.groups == groups and -(-(p // 4) // plan.groups) == ftiles
+    assert threads <= RC._PASS2_MAX_THREADS
+    assert threads > 0.9 * min(RC._PASS2_MAX_THREADS,
+                               plan.groups * RC._PASS2_MAX_ROW_GROUPS)
+    assert plan.span % RC._PASS2_STAGE == 0
+    assert (plan.spans - 1) * plan.span < n <= plan.spans * plan.span
+    assert plan.focal_rows == RC._PASS2_ROWS_PER_THREAD * plan.rows
+
+
+@pytest.mark.parametrize("rows", [None, (4, 12)], ids=["square", "rect"])
+def test_split_dist_matrix_matches_pallas(monkeypatch, rows, rng):
+    """p >> n: pass 1 sums 64 feature ranges apart, then in order."""
+    n, p = 16, 8192
+    x = rng.rand(n, p).astype(np.float32)
+    recip = ((rng.rand(p) + 0.5) / p).astype(np.float32)   # D about 1/3
+    xi = None if rows is None else x[rows[0]:rows[1]]
+    nb = n if rows is None else rows[1] - rows[0]
+    assert len(RC.pass1_splits(nb, n, p)) == 64
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(pallas_dist_matrix(
+            x, recip[None], np.zeros((1, p), np.float32), 8, n, 128, xi=xi,
+            cont=True))
+    got = RC.dist_matrix(_t(x), _t(recip), torch.zeros(p),
+                         xi=None if xi is None else _t(xi), mixed=False)
+    assert_allclose(got.numpy(), ref, atol=1e-5)
+    monkeypatch.setattr(RC, "_PASS1_TARGET_BLOCKS", 1)   # one range
+    assert len(RC.pass1_splits(nb, n, p)) == 1
+    whole = RC.dist_matrix(_t(x), _t(recip), torch.zeros(p),
+                           xi=None if xi is None else _t(xi), mixed=False)
+    assert_allclose(got.numpy(), whole.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("algo,star,k,ncls", CASES[:1] + CASES[-1:])
+def test_fused_engine_p_much_larger_than_n(algo, star, k, ncls, rng):
+    n, p = 20, 512
+    x, y, recip, disc = _mixed_data(rng, n, p, 0, ncls)
+    x[:, 7] += 0.7 * (y == 1)
+    assert len(RC.pass1_splits(64, 64, p)) > 1
+    cp = np.bincount(y, minlength=ncls).astype(np.float32) / n
+    got = RC.relief_fused_scores(x, y, recip, disc, algo=algo,
+                                 use_star=star, n_neighbors=k,
+                                 class_probs=cp)
+    pallas = relief_pallas_scores(x, y, recip, disc, algo=algo,
+                                  use_star=star, n_neighbors=k,
+                                  class_probs=cp, interpret=True)
+    generic = _generic_scores(x, y, recip, disc, algo, star, k, cp)
+    for ref in (pallas, generic):
+        assert_allclose(got, ref, atol=1e-4)
+        assert_array_equal(np.argsort(got), np.argsort(ref))
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["cont", "mixed"])
+def test_features_padded_to_4_as_to_32(monkeypatch, mixed, rng):
+    """Padding p = 21 to 24 rather than 32 leaves D bit-equal and the
+    scores within 1e-6."""
+    n, p = 70, 21
+    x, y, recip, disc = _mixed_data(rng, n, p, 5 if mixed else 0)
+    assert RC.block_plan(n, p, torch.device("cpu")).p_pad == 24
+    four = RC.relief_fused_scores(x, y, recip, disc, algo="multisurf")
+    xp = np.zeros((n, 32), np.float32)
+    xp[:, :p] = x
+    rp = np.zeros(32, np.float32)
+    rp[:p] = recip
+    dp = np.zeros(32, np.float32)
+    dp[:p] = disc
+    D24 = RC.dist_matrix(_t(xp[:, :24]), _t(rp[:24]), _t(dp[:24]),
+                         mixed=mixed)
+    D32 = RC.dist_matrix(_t(xp), _t(rp), _t(dp), mixed=mixed)
+    assert torch.equal(D24, D32)
+    monkeypatch.setattr(RC, "TILE_FEATURES", 32)
+    assert RC.block_plan(n, p, torch.device("cpu")).p_pad == 32
+    thirty_two = RC.relief_fused_scores(x, y, recip, disc, algo="multisurf")
+    assert_allclose(four, thirty_two, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("p", [1, 3, 4, 5, 100, 101])
+def test_plans_pad_features_to_4(p):
+    from fastselect_tpu_torch.ops import relief_hybrid as RH
+    cpu = torch.device("cpu")
+    p_pad = RC.block_plan(300, p, cpu).p_pad
+    p_c_pad = RH.hybrid_plan(300, p, 3, 3, cpu).p_c_pad
+    for pad in (p_pad, p_c_pad):
+        assert pad % 4 == 0 and p <= pad < p + 4
+
+
+# ---------------------------------------------------------------------------
+# The build: one nvcc per source, then one link, and ptxas's report
+# ---------------------------------------------------------------------------
+
+_FAKE_NVCC = '''#!/usr/bin/env python3
+import sys
+args = sys.argv[1:]
+if "{fail}" and args[-1].endswith("{fail}"):
+    sys.exit("error in " + args[-1])
+open(args[args.index("-o") + 1], "w").write(" ".join(args))
+if "-c" in args:
+    name = args[-1].rsplit("/", 1)[-1]
+    sys.stderr.write(
+        "ptxas info    : Compiling entry function '_Z4k_" + name +
+        "' for 'sm_90a'\\n    0 bytes stack frame, 8 bytes spill stores\\n"
+        "ptxas info    : Used 40 registers, used 1 barriers\\n")
+'''
+
+
+def _fake_nvcc(monkeypatch, tmp_path, fail=""):
+    from fastselect_tpu_torch import _build
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(fail=fail))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    return _build
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    _build = _fake_nvcc(monkeypatch, tmp_path)
+    units = [s.name for s in _build._units()]
+    assert "relief_pass1_cont.cu" in units and "cp_async.cuh" not in units
+    lib = _build.build()
+    assert lib == _build.library_path() and lib.exists()
+    link = lib.read_text().split()
+    assert "-shared" in link
+    assert sorted(a.rsplit("/", 1)[-1] for a in link if a.endswith(".o")) \
+        == sorted(u.replace(".cu", ".o") for u in units)
+    report = _build.ptxas_report()
+    assert [r[0] for r in report] == [f"_Z4k_{u}" for u in units]
+    assert all(r[1:] == (40, 8) for r in report)
+    assert sorted((tmp_path / "kernels").iterdir()) == sorted(
+        [lib, lib.with_suffix(".ptxas.txt")])   # no objects left behind
+
+
+def test_build_failure_leaves_no_library(monkeypatch, tmp_path):
+    _build = _fake_nvcc(monkeypatch, tmp_path, fail="relief_pass2_cont.cu")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build()
+    assert not _build.library_path().exists()
+    assert list((tmp_path / "kernels").iterdir()) == []

@@ -10,24 +10,31 @@ Phases, one or two lines each on stdout:
 1. environment: torch, CUDA, the card and its power limit, nvcc, triton;
 2. build: ``nvcc`` compiles ``fastselect_tpu_torch/csrc/*.cu`` for sm_90a,
    and ptxas's registers and spills of every kernel;
-3. each kernel against its plain PyTorch version on the card, at ragged
-   shapes (square and rectangular focal blocks; for the continuous
-   kernels also a shape ragged in nb, n and p, and large-p's 128 x 128 x
-   100,000, whose pass 1 splits its features), continuous pass 1 bit for
-   bit and pass 2 the same over two launches; then each kernel timed with
-   CUDA events at the shapes the main path gives it and with features
-   padded to 32 as the engines once padded them (p = 128 and 224), for
-   comparison, the continuous ones also at mixed-square's
-   continuous half, beside its bound, its plain version and, for
-   continuous pass 1, ``torch.cdist``;
+3. each kernel against its plain PyTorch version on the card: square and
+   rectangular focal blocks, a shape ragged in nb, n and p, and large-p's
+   128 x 128 x 100,000, whose pass 1 splits its features; for the
+   ``MIXED`` kernels (60, 14, 30% of the columns discrete, leading) also
+   every third column discrete and all columns discrete.  Pass 1 of
+   either kind bit for bit, pass 2 within ``SCORE_RTOL`` and the same
+   over two launches.  Then each kernel timed with CUDA events at the
+   shapes the main path gives it and with features padded to 32 as the
+   engines once padded them (p = 128 and 224), for comparison, the
+   continuous ones also at mixed-square's continuous half, the ``MIXED``
+   ones also all-discrete at 4,096 x 4,096 x 16,384, beside its bound,
+   its plain version (whose output the kernel's is held against there as
+   above: mixed-xl's focal block included) and, for pass 1,
+   ``torch.cdist`` (p=1 continuous, p=0 all-discrete);
 4. ``MultiSURF().fit`` at the upstream reference's large-n point,
    50,000 samples x 100 continuous features, first and warm;
 5. the same at its large-p point, 100 samples x 100,000 features;
 6. a small mixed fit (2,000 x 200 with 40 integer-valued columns) on the
    hybrid engine, a mixed fit with a 150-state discrete column on the
-   fused engine's ``MIXED`` kernels, and MultiSURF and MultiSURF* on a
-   37 x 19 mixed input against the numpy oracle of the reference's
-   semantics in ``tests/oracles.py``;
+   fused engine's ``MIXED`` kernels, mixed-xl (150,000 x 100 with 40
+   columns cut to 0..2: past the hybrid engine's 131,072 samples, so the
+   ``MIXED`` kernels over 293 focal blocks of 512 rows), first and warm,
+   against the hybrid engine called directly on the same rows, and
+   MultiSURF and MultiSURF* on a 37 x 19 mixed input against the numpy
+   oracle of the reference's semantics in ``tests/oracles.py``;
 7. the SNP headline: ``MultiSURF().fit`` on 16,384 x 65,536 int8
    genotypes, through the integer fast path and the symmetric tier of the
    all-discrete engine (int8 GEMMs), timed first and warm, with the
@@ -53,9 +60,9 @@ Phases, one or two lines each on stdout:
 
 Phases 4-6 are the main path of the four kernels: every kernel launch
 count is set to 0 before them and read after them, less the launches of
-the small mixed fit's ``MIXED``-kernel reference, and each kernel must
-have been launched there by a fit (the ``MIXED`` kernels by the
-150-state fit).
+the small mixed fit's ``MIXED``-kernel reference and of mixed-xl's
+hybrid referee, and each kernel must have been launched there by a fit
+(the ``MIXED`` kernels by the 150-state and mixed-xl fits).
 Each fused-engine fit there and in phase 9 is held against the same
 engine run on the card with the plain PyTorch passes.  Phases 7 and 8 are
 the all-discrete path: the GEMM operation count is set to 0 before each
@@ -94,23 +101,24 @@ from fastselect_tpu_torch.utils.preprocessing import analyze_features
 
 # Kernel name -> (source, Pallas kernel it replaces)
 KERNELS = {
-    "relief_pass1_cont": ("fastselect_tpu_torch/csrc/relief_pass1_cont.cu",
+    "relief_pass1_cont": ("fastselect_tpu_torch/csrc/relief_pass1.cu",
                           "fastselect_tpu/ops/relief_pallas.py:82"),
     "relief_pass1_mixed": ("fastselect_tpu_torch/csrc/relief_pass1.cu",
                            "fastselect_tpu/ops/relief_pallas.py:63"),
-    "relief_pass2_cont": ("fastselect_tpu_torch/csrc/relief_pass2_cont.cu",
+    "relief_pass2_cont": ("fastselect_tpu_torch/csrc/relief_pass2.cu",
                           "fastselect_tpu/ops/relief_pallas.py:126"),
     "relief_pass2_mixed": ("fastselect_tpu_torch/csrc/relief_pass2.cu",
                            "fastselect_tpu/ops/relief_pallas.py:103"),
 }
-# __global__ functions of each kernel, as ptxas names them (mangled)
-KERNEL_FUNCTIONS = {"relief_pass1_cont": ("dist_kernel_cont",
+# __global__ functions of each kernel, as ptxas names them (mangled: pass
+# 1's kind template has the instances ILb0 and ILb1)
+KERNEL_FUNCTIONS = {"relief_pass1_cont": ("dist_kernelILb0",
                                           "split_sum_kernel"),
-                    "relief_pass1_mixed": ("dist_kernelILb1",),
+                    "relief_pass1_mixed": ("dist_kernelILb1",
+                                           "split_sum_kernel"),
                     "relief_pass2_cont": ("accum_kernel_cont",),
-                    "relief_pass2_mixed": ("accum_kernelILb1",)}
-D_ATOL = 1e-4        # mixed pass 1 against its plain version (expected: 0);
-                     # continuous pass 1 must equal its plain version
+                    "relief_pass2_mixed": ("accum_kernel_mixed",)}
+# pass 1 of either kind must equal its plain version bit for bit
 SCORE_RTOL = 1e-3    # pass 2 against its plain version, relative to max|s|
 FIT_ATOL = 1e-4      # fitted scores against the plain-pass engine
 ORACLE_ATOL = 2e-6   # against tests/oracles.py, as tests/test_multisurf.py
@@ -234,14 +242,17 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def random_inputs(dev, n, p, n_disc, seed):
+def random_inputs(dev, n, p, n_disc, seed, stride=1):
     """Padded-engine-like inputs: X (n, p) with n_disc integer-valued
-    columns flagged discrete, and recip from the column ranges."""
+    columns flagged discrete (every ``stride``-th from column 0: by
+    default the leading ones, the engine's layout), and recip from the
+    column ranges."""
     rng = np.random.RandomState(seed)
     x = rng.rand(n, p).astype(np.float32)
-    x[:, :n_disc] = rng.randint(0, 3, (n, n_disc))
+    cols = np.arange(n_disc) * stride
+    x[:, cols] = rng.randint(0, 3, (n, n_disc))
     disc = np.zeros(p, np.float32)
-    disc[:n_disc] = 1.0
+    disc[cols] = 1.0
     recip = (1.0 / np.maximum(x.max(0) - x.min(0), 1e-6)).astype(np.float32)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     return t(x), t(recip), t(disc)
@@ -572,6 +583,76 @@ def hybrid_phase(dev, label, X, y, n_select=10, warm=0):
     return est, fit_s, ref_moved
 
 
+def mixed_xl_phase(dev, X, y, warm=1):
+    """MultiSURF on mixed data past ``HYBRID_MAX_N`` samples: it must take
+    the fused engine (the MIXED kernels, over focal blocks; no continuous
+    launch), and is held against the hybrid engine called directly on the
+    same rows (its blocked path takes any n: the continuous kernels and
+    the int8 GEMMs).  Returns the first fit's seconds, the warm fits'
+    seconds and the referee's kernel launches."""
+    n, p = X.shape
+    label = "mixed-xl"
+    y_enc = np.unique(y, return_inverse=True)[1]
+    x_dev = torch.from_numpy(X).to(dev)
+    fa = analyze_features(x_dev, MultiSURF().discrete_limit)
+    disc = fa.is_discrete.cpu().numpy()
+    n_states = fa.n_states
+    route = relief_engine(n, disc, n_states)
+    check(route == "fused", f"{label}: route {route}")
+    plan = rc.block_plan(n, p, dev, n_disc=int(disc.sum()))
+    before = dict(rc.launches)
+    est, fit_s, peak_gb = timed_fit(dev, MultiSURF(n_features_to_select=10),
+                                    X, y)
+    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    warm_s = [timed_fit(dev, MultiSURF(n_features_to_select=10), X, y)[1]
+              for _ in range(warm)]
+    s = est.feature_importances_
+    blocks = plan.n_pad // plan.nb
+    check(est.effective_backend_ == "cuda", f"{label}: effective_backend_")
+    check(moved["relief_pass1_mixed"] == blocks
+          and moved["relief_pass2_mixed"] == blocks
+          and moved["relief_pass1_cont"] == moved["relief_pass2_cont"] == 0,
+          f"{label}: one MIXED launch of each pass a focal block, no "
+          f"continuous launch: {moved}")
+    check(est.is_discrete_[:40].all() and not est.is_discrete_[40:].any(),
+          f"{label}: exactly the 40 cut columns are discrete")
+    check(s.shape == (p,) and np.isfinite(s).all(),
+          f"{label}: finite scores of shape ({p},)")
+
+    before = dict(rc.launches)
+    rd.reset_gemm_ops()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = rh.relief_hybrid_scores(x_dev, y_enc, fa.recip, fa.is_discrete,
+                                  algo="multisurf", codes=fa.codes,
+                                  n_states=n_states)
+    ref_s = time.perf_counter() - t0
+    ref_moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    ops = rd.gemm_ops
+    del x_dev, fa
+    torch.cuda.empty_cache()
+    ref_top = np.argsort(ref)[::-1][:10]
+    err = float(np.abs(s - ref).max())
+    check(ref_moved["relief_pass1_cont"] > 0 and ops > 0
+          and ref_moved["relief_pass1_mixed"] == 0,
+          f"{label}: the hybrid referee ran its continuous kernels and "
+          f"GEMMs ({ops} ops, launches {ref_moved})")
+    check(err <= fit_tol(ref), f"{label}: max |scores - hybrid engine| = "
+          f"{err}")
+    check(np.array_equal(est.top_features_, ref_top),
+          f"{label}: top_features_ {est.top_features_} vs {ref_top}")
+    print(f"{label}: MultiSURF X {n}x{p} ({int(disc.sum())} discrete, "
+          f"{n_states} states) route fused; plan n_pad "
+          f"{plan.n_pad} p_pad {plan.p_pad} nb {plan.nb} ({blocks} focal "
+          f"blocks); fit {fit_s:.4f} s"
+          f"{''.join(f', warm {t:.4f} s' for t in warm_s)}; peak "
+          f"{peak_gb:.2f} GB; launches {moved}; hybrid engine (referee) "
+          f"{ref_s:.4f} s, launches {ref_moved}; max |scores - hybrid| "
+          f"{err:.3e}; top_features_ {est.top_features_.tolist()} equal",
+          flush=True)
+    return fit_s, warm_s, ref_moved
+
+
 def device_fit_phase(dev, label, X, y, host_est, host_s):
     """``fit`` on X already on the card as a tensor: the host-array fit's
     model, with no host copy of X.  Returns the fit's seconds."""
@@ -701,49 +782,70 @@ def ptxas_usage():
         for name, fns in KERNEL_FUNCTIONS.items():
             fn = next((f for f in fns if f in mangled), None)
             if fn is not None:
-                out[name].append((fn.removesuffix("ILb1"), regs, spill))
+                out[name].append((fn.replace("ILb0", "<false>").replace(
+                    "ILb1", "<true>"), regs, spill))
     return out
+
+
+def held(pass2, out, ref, where):
+    """(max |out - ref|, the same over max |ref|) of a kernel's output
+    against its plain version's, checked: pass 1 bit for bit, pass 2
+    within SCORE_RTOL of max |ref|."""
+    err = (out - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    if pass2:
+        check(rel <= SCORE_RTOL, f"pass2 {where}: relative err {rel}")
+    else:
+        check(err == 0, f"pass1 {where}: |D| err {err}")
+    return err, rel
 
 
 def kernel_checks(dev):
     """Each kernel against its plain version on the card: max |error| by
-    kernel.  Continuous pass 1 must equal its plain version bit for bit
-    (the feature ranges of ``pass1_splits`` included), and every pass 2
-    must give the same bits over two launches."""
+    kernel.  Pass 1 of either kind must equal its plain version bit for
+    bit (the feature ranges of ``pass1_splits`` included), and every pass
+    2 must be within SCORE_RTOL of its plain version and give the same
+    bits over two launches.  The MIXED cases lead with their discrete
+    columns (the engine's layout; pass 2 then plans per run), but for one
+    whose 4-column steps mix kinds (ragged: 14 discrete columns) and one
+    with every third column discrete (interleaved)."""
     err = {k: 0.0 for k in KERNELS}
-    cases = [(tag, label, 1000, 300, nb, off)   # (n, p, nb, first row)
+    # (tag, label, n, p, nb, first row, discrete columns, their stride)
+    cases = [(tag, label, 1000, 300, nb, off, 60 if tag == "mixed" else 0, 1)
              for tag in ("cont", "mixed")
              for label, nb, off in (("square", 1000, 0),
                                     ("rectangular", 777, 100))]
-    cases += [("cont", "ragged", 1004, 44, 333, 7),
-              ("cont", "large-p", 128, 100000, 128, 0)]
-    for tag, label, n, p, nb, off in cases:
+    cases += [("cont", "ragged", 1004, 44, 333, 7, 0, 1),
+              ("cont", "large-p", 128, 100000, 128, 0, 0, 1),
+              ("mixed", "ragged", 1004, 44, 333, 7, 14, 1),
+              ("mixed", "large-p", 128, 100000, 128, 0, 30000, 1),
+              ("mixed", "interleaved", 1000, 300, 777, 100, 100, 3),
+              ("mixed", "all-discrete", 1000, 300, 1000, 0, 300, 1)]
+    for tag, label, n, p, nb, off, n_disc, stride in cases:
         mixed = tag == "mixed"
-        xp, recip, disc = random_inputs(dev, n, p, 60 if mixed else 0,
-                                        seed=1)
+        xp, recip, disc = random_inputs(dev, n, p, n_disc, seed=1,
+                                        stride=stride)
+        run = n_disc if stride == 1 and n_disc % 4 == 0 else 0
         xi = xp if nb == n else xp[off:off + nb].contiguous()
         k1, k2 = f"relief_pass1_{tag}", f"relief_pass2_{tag}"
         before = dict(rc.launches)
         D = rc.dist_matrix(xp, recip, disc, xi=xi, mixed=mixed)
         D_ref = rc.dist_matrix_ref(xp, recip, disc, xi=xi, mixed=mixed)
         W = torch.rand(nb, n, device=dev) - 0.5
-        s = rc.accumulate(xp, W, recip, disc, xi=xi, mixed=mixed)
-        s_again = rc.accumulate(xp, W, recip, disc, xi=xi, mixed=mixed)
+        s = rc.accumulate(xp, W, recip, disc, xi=xi, mixed=mixed, n_disc=run)
+        s_again = rc.accumulate(xp, W, recip, disc, xi=xi, mixed=mixed,
+                                n_disc=run)
         s_ref = rc.accumulate_ref(xp, W, recip, disc, xi=xi, mixed=mixed)
-        torch.cuda.synchronize()
-        d_err = (D - D_ref).abs().max().item()
-        s_err = (s - s_ref).abs().max().item()
-        s_rel = s_err / s_ref.abs().max().item()
+        where = (f"{tag} {label} xi {nb}x{p} vs xp {n}x{p}"
+                 + (f", {n_disc} discrete" if mixed else ""))
+        d_err, _ = held(False, D, D_ref, where)
+        s_err, s_rel = held(True, s, s_ref, where)
         err[k1] = max(err[k1], d_err)
         err[k2] = max(err[k2], s_err)
-        where = f"{tag} {label} xi {nb}x{p} vs xp {n}x{p}"
-        check(d_err == 0 if not mixed else d_err <= D_ATOL,
-              f"pass1 {where}: |D| err {d_err}")
-        check(s_rel <= SCORE_RTOL, f"pass2 {where}: relative err {s_rel}")
         check(torch.equal(s, s_again), f"pass2 {where}: two launches differ")
         check(rc.launches[k1] == before[k1] + 1, f"{k1} counter")
         check(rc.launches[k2] == before[k2] + 2, f"{k2} counter")
-        ranges = 1 if mixed else len(rc.pass1_splits(nb, n, p))
+        ranges = len(rc.pass1_splits(nb, n, p))
         print(f"kernels {where} ({ranges} feature ranges): max |D - ref| "
               f"{d_err:.3e}, max |s - ref| {s_err:.3e} (relative "
               f"{s_rel:.3e}), pass 2 equal over two launches", flush=True)
@@ -763,28 +865,41 @@ def kernel_bound(pass2, nb, n, p):
             else (bytes_ms, "bytes"))
 
 
-def kernel_timing(dev):
-    """Kernel name -> one row per timed shape, the main path's first: the
-    kernel's time (CUDA events, mean of 10 launches), its bound, its plain
-    version's time at the main path's shapes and, for continuous pass 1,
-    that of ``torch.cdist(xi * recip, xp * recip, p=1)``, the one PyTorch
-    call that computes the same D (the port never calls it)."""
+def timed_shapes(dev):
+    """The shapes at which the kernels are timed, the main path's first
+    (from ``block_plan``): (tag, label, nb, n, p, discrete columns, time
+    the plain version).  ``tools/kernel_ab.py`` times the same."""
     ln = rc.block_plan(50000, 100, dev)
     lp = rc.block_plan(100, 100000, dev)
-    mx = rc.block_plan(2000, 200, dev)
-    shapes = [  # (tag, label, nb, n, p, discrete columns, time the plain)
+    mx = rc.block_plan(2000, 200, dev, n_disc=40)
+    xl = rc.block_plan(150000, 100, dev, n_disc=40)
+    return [
         ("cont", "large-n", ln.nb, ln.n_pad, ln.p_pad, 0, True),
         ("cont", "large-n, features padded to 32", ln.nb, ln.n_pad, 128,
          0, False),
         ("cont", "large-p", lp.nb, lp.n_pad, lp.p_pad, 0, True),
         ("cont", "mixed-square continuous half", 16384, 16384, 2048, 0,
          False),
+        ("mixed", "mixed-xl focal block", xl.nb, xl.n_pad, xl.p_pad, 40,
+         True),
         ("mixed", "mixed-fused", mx.nb, mx.n_pad, mx.p_pad, 40, True),
         ("mixed", "mixed-fused, features padded to 32", mx.nb, mx.n_pad,
-         224, 40, False),
+         224, 40, True),
+        ("mixed", "all-discrete", 4096, 4096, 16384, 16384, False),
     ]
+
+
+def kernel_timing(dev, err):
+    """Kernel name -> one row per timed shape, the main path's first: the
+    kernel's time (CUDA events, mean of 10 launches), its bound, its plain
+    version's time (where nb * n * p < 1e10 for the MIXED kernels) and,
+    for pass 1, that of the one PyTorch call that computes the same D (the
+    port never calls it): ``torch.cdist(xi * recip, xp * recip, p=1)``
+    on continuous data, ``torch.cdist(xi, xp, p=0)`` at the all-discrete
+    shape.  Where the plain version runs, the kernel's output is held
+    against it as in ``kernel_checks`` and ``err`` takes its error."""
     timing = {k: [] for k in KERNELS}
-    for tag, label, nb, n, p, n_disc, plain in shapes:
+    for tag, label, nb, n, p, n_disc, plain in timed_shapes(dev):
         mixed = tag == "mixed"
         xp, recip, disc = random_inputs(dev, n, p, n_disc, seed=2)
         xi = xp[:nb]
@@ -797,30 +912,45 @@ def kernel_timing(dev):
                                            mixed=mixed)),
             "relief_pass2": (
                 lambda: rc.accumulate(xp, W, recip, disc, xi=xi,
-                                      mixed=mixed),
+                                      mixed=mixed, n_disc=n_disc),
                 lambda: rc.accumulate_ref(xp, W, recip, disc, xi=xi,
                                           mixed=mixed)),
         }
         for kname, (kernel, ref) in runs.items():
             key = f"{kname}_{tag}"
-            library_ms = None
+            library_ms = lib_name = None
             if key == "relief_pass1_cont":
                 xs, ps = xi * recip, xp * recip
                 library_ms = cuda_ms(lambda: torch.cdist(xs, ps, p=1), 3)
+                lib_name = "torch.cdist(p=1)"
                 del xs, ps
                 torch.cuda.empty_cache()
+            elif key == "relief_pass1_mixed" and n_disc == p:
+                library_ms = cuda_ms(lambda: torch.cdist(xi, xp, p=0), 1)
+                lib_name = "torch.cdist(p=0)"
+                torch.cuda.empty_cache()
+            pass2 = kname == "relief_pass2"
+            shape = (f"xi {nb}x{p} vs xp {n}x{p}"
+                     + (f", {n_disc} discrete" if mixed else ""))
             ms = cuda_ms(kernel, 10)
-            plain_ms = cuda_ms(ref, ref_reps) if plain else None
-            bound_ms, bound_by = kernel_bound(kname == "relief_pass2",
-                                              nb, n, p)
-            shape = f"xi {nb}x{p} vs xp {n}x{p}"
+            plain_ms = max_err = None
+            if plain:
+                plain_ms = cuda_ms(ref, ref_reps)
+                out, want = kernel(), ref()
+                max_err, rel = held(pass2, out, want, f"{key} at {label}")
+                err[key] = max(err[key], max_err)
+                del out, want
+            bound_ms, bound_by = kernel_bound(pass2, nb, n, p)
             timing[key].append(dict(
                 shape=f"{label}: {shape}", ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
-                share=bound_ms / ms, library_ms=library_ms))
+                share=bound_ms / ms, library_ms=library_ms,
+                max_abs_err=max_err))
             lib = ("" if library_ms is None
-                   else f", torch.cdist {library_ms:.4f} ms")
-            ref_s = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
+                   else f", {lib_name} {library_ms:.4f} ms")
+            ref_s = ("" if plain_ms is None else
+                     f", plain {plain_ms:.4f} ms (max |err| {max_err:.3e}, "
+                     f"relative {rel:.3e})")
             print(f"time {key} at {label} ({shape}): kernel {ms:.4f} ms"
                   f"{ref_s}, bound {bound_ms:.4f} ms ({bound_by}), "
                   f"{100 * bound_ms / ms:.1f}% of it{lib}", flush=True)
@@ -870,7 +1000,7 @@ def main():
 
     # 3. kernels against their plain versions, then timed
     err = kernel_checks(dev)
-    timing = kernel_timing(dev)
+    timing = kernel_timing(dev, err)
 
     # 4-6. the main path
     rc.reset_launch_counts()
@@ -898,9 +1028,16 @@ def main():
                             discrete_limit=200)
     check(est.is_discrete_[:40].all() and not est.is_discrete_[40:].any(),
           "mixed-fused: the 40 integer columns are discrete")
+    X, y = make_classification(n_samples=150000, n_features=100,
+                               n_informative=10, random_state=9)
+    X = quantized(X, np.arange(40)).astype(np.float32)
+    fit_xl, warm_xl, ref_xl = mixed_xl_phase(dev, X, y)
+    del X
     oracle_phase()
-    # the mixed phase's reference ran the MIXED kernels: not the main path
-    main_launches = {k: rc.launches[k] - ref_mixed[k] for k in rc.launches}
+    # the mixed phase's reference ran the MIXED kernels and mixed-xl's the
+    # continuous ones: not the main path
+    main_launches = {k: rc.launches[k] - ref_mixed[k] - ref_xl[k]
+                     for k in rc.launches}
     for name in KERNELS:
         check(main_launches[name] > 0, f"{name} launched on the main path")
 
@@ -999,7 +1136,9 @@ def main():
          "spill_bytes": [spill for _, _, spill in ptxas[name]]}
         for name, (src, rep) in KERNELS.items()]}
     print(f"fits: large-n {fit_n:.4f} s, large-p {fit_p:.4f} s, mixed "
-          f"{fit_m:.4f} s, mixed-fused {fit_mf:.4f} s, mixed-square "
+          f"{fit_m:.4f} s, mixed-fused {fit_mf:.4f} s, mixed-xl "
+          f"{fit_xl:.4f} s (warm {', '.join(f'{t:.4f}' for t in warm_xl)} "
+          f"s), mixed-square "
           f"{fit_sq:.4f} s, mixed-large-n {fit_ln:.4f} s; snp-headline first "
           f"{head['first_s']:.4f} s, warm "
           f"{', '.join(f'{t:.4f}' for t in head['warm_s'])} s (MIXED route "

@@ -35,13 +35,16 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # xi, xp, recip, d, partial, nb, n, p, split, splits, stream
     "fs_relief_pass1_cont": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # xi, xp, recip, disc, d, nb, n, p, stream
-    "fs_relief_pass1_mixed": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # xi, xp, recip, disc, d, partial, nb, n, p, split, splits, stream
+    "fs_relief_pass1_mixed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _P),
     # xi, xp, w, recip, partial, nb, n, p, groups, rows, span, stream
     "fs_relief_pass2_cont": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _P),
-    # xi, xp, w, recip, disc, partial, nb, n, p, stream
-    "fs_relief_pass2_mixed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # xi, xp, w, recip, disc, partial, nb, n, p, p_disc, groups, rows, span,
+    # stream
+    "fs_relief_pass2_mixed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

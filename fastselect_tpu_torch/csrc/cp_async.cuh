@@ -1,5 +1,5 @@
 // 16-byte asynchronous copies from device to shared memory (sm_80 and up),
-// shared by the continuous Relief kernels.
+// shared by the Relief kernels.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -4,16 +4,18 @@ Counterpart of ``fastselect_tpu/ops/relief_pallas.py``.  The Pallas
 kernels of that module become the Hopper kernels of ``csrc/``:
 
   pass 1  D[i, j] = sum_f diff(i, j, f), for a focal block of rows against
-          all samples: ``relief_pass1_cont.cu`` (``_dist_kernel_cont``) and
-          ``relief_pass1.cu`` (``_dist_kernel``);
-  pass 2  scores[f] = sum_ij W[i, j] * diff(i, j, f):
-          ``relief_pass2_cont.cu`` (``_accum_kernel_cont``) and
-          ``relief_pass2.cu`` (``_accum_kernel``).
+          all samples: ``relief_pass1.cu`` (``_dist_kernel_cont`` and
+          ``_dist_kernel``);
+  pass 2  scores[f] = sum_ij W[i, j] * diff(i, j, f): ``relief_pass2.cu``
+          (``_accum_kernel_cont`` and ``_accum_kernel``).
 
-``MIXED`` kernels apply Hamming distance to the discrete columns; the
-continuous ones skip the per-feature select, and take rows that are
-16-byte aligned (p a multiple of 4, and n too in pass 2), so every engine
-pads features to ``TILE_FEATURES``.  Between the passes the pair weights W
+One body per pass serves both kinds.  The ``MIXED`` instance applies
+Hamming distance to the discrete columns and reads a column's kind once
+for every float4 group; the fused engine orders its columns by kind
+(:func:`feature_positions`), so that a group, a pass-1 step and a pass-2
+block are each of one kind.  The kernels take rows that are 16-byte
+aligned (p a multiple of 4, and n too in pass 2), so every engine pads
+features to ``TILE_FEATURES``.  Between the passes the pair weights W
 come from D by the rules of ``relief.pair_weight_rules``.
 
 Each wrapper (:func:`dist_matrix`, :func:`accumulate`) launches its kernel
@@ -37,16 +39,15 @@ import torch
 from .. import _build
 from .relief import _sum_rules, pair_weight_rules
 
-# Samples pad to 64 rows (the mixed pass-1 tile, kBI == kBJ in
-# relief_pass1.cu; the continuous kernels mask ragged rows themselves),
-# features to the continuous kernels' 16-byte vector width; padded rows
-# and features weigh nothing.
+# Samples pad to 64 rows, which meets the hybrid engine's int8 GEMMs (more
+# than 16 rows, multiples of 8; the kernels mask ragged rows themselves),
+# features to the kernels' 16-byte vector width; padded rows and features
+# weigh nothing.
 TILE_ROWS = 64
 TILE_FEATURES = 4
-_PASS2_MIXED_ROWS = 32   # focal rows per block (kIT in relief_pass2.cu)
 
-# Continuous pass 1 (relief_pass1_cont.cu): a block tile of kTile x kTile
-# pairs.  When the tiles cannot fill the card (p >> n), the features split
+# Pass 1 (relief_pass1.cu): a block tile of kTile x kTile pairs.  When
+# the tiles cannot fill the card (p >> n), the features split
 # into ranges summed apart, so that the blocks reach _PASS1_TARGET_BLOCKS
 # (two resident blocks on each of the H100's 132 SMs), each range holding
 # at least _PASS1_MIN_SPLIT features (a multiple of 4): below that, writing
@@ -54,9 +55,9 @@ _PASS2_MIXED_ROWS = 32   # focal rows per block (kIT in relief_pass2.cu)
 _PASS1_TILE = 128
 _PASS1_TARGET_BLOCKS = 264
 _PASS1_MIN_SPLIT = 128
-# Continuous pass 2 (relief_pass2_cont.cu): a thread holds 8 focal rows of
-# one float4 feature group; a block is at most 32 groups by 32 row groups
-# and 256 threads.  Sample spans of at least _PASS2_MIN_SPAN samples (a
+# Pass 2 (relief_pass2.cu): a thread holds 8 focal rows of one float4
+# feature group; a block is at most 32 groups by 32 row groups and 256
+# threads.  Sample spans of at least _PASS2_MIN_SPAN samples (a
 # multiple of the 64-sample stage) are added when the focal and feature
 # tiles give fewer than _PASS2_TARGET_BLOCKS blocks (four waves of two
 # resident blocks on 132 SMs).
@@ -98,8 +99,8 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def pass1_splits(nb: int, n: int, p: int) -> list[tuple[int, int]]:
-    """Feature ranges [f0, f1) that continuous pass 1 sums apart, in order,
-    for focal rows nb, samples n and features p (a multiple of 4).
+    """Feature ranges [f0, f1) that pass 1 (either kind) sums apart, in
+    order, for focal rows nb, samples n and features p (a multiple of 4).
 
     From the shape alone, never the device, so the plain version on the
     CPU takes the same ranges as the kernel.  One range unless the
@@ -121,16 +122,20 @@ class Pass2Plan(NamedTuple):
         return _PASS2_ROWS_PER_THREAD * self.rows
 
 
-def pass2_plan(nb: int, n: int, p: int) -> Pass2Plan:
-    """Block shape and sample spans of continuous pass 2 for focal rows
-    nb, samples n and features p (a multiple of 4), from the shape alone.
+def pass2_plan(nb: int, n: int, p: int, n_disc: int = 0) -> Pass2Plan:
+    """Block shape and sample spans of pass 2 for focal rows nb, samples n
+    and features p whose first n_disc form the discrete run (both
+    multiples of 4), from the shape alone.
 
-    Feature tiles are balanced, so that a p of 100 runs as one tile of 25
-    groups (250 threads) rather than 32 groups with 7 idle."""
-    g = p // 4
-    ftiles = _cdiv(g, _PASS2_MAX_GROUPS)
-    groups = _cdiv(g, ftiles)
+    The kernel tiles the run [0, n_disc) in tiles of 4 * groups features,
+    then the run [n_disc, p), so that no tile straddles the two.  Tiles are
+    balanced within a run, so that a p of 100 runs as one tile of 25
+    groups (250 threads) rather than 32 groups with 7 idle; with two runs
+    a block is as wide as the wider run's tile."""
+    runs = [g for g in (n_disc // 4, (p - n_disc) // 4) if g]
+    groups = max(_cdiv(g, _cdiv(g, _PASS2_MAX_GROUPS)) for g in runs)
     rows = min(_PASS2_MAX_THREADS // groups, _PASS2_MAX_ROW_GROUPS)
+    ftiles = sum(_cdiv(g, groups) for g in runs)
     blocks = ftiles * _cdiv(nb, _PASS2_ROWS_PER_THREAD * rows)
     spans = max(1, min(_cdiv(_PASS2_TARGET_BLOCKS, blocks),
                        n // _PASS2_MIN_SPAN))
@@ -176,22 +181,23 @@ def _dist_sum(xiT, xpT, recip, disc, f0, f1, mixed):
 def dist_matrix_ref(xp, recip, disc, xi=None, *, mixed):
     """Plain version of :func:`dist_matrix`.
 
-    Each feature range of the kernel's plan (one range for the mixed
-    kernel, :func:`pass1_splits` for the continuous one) is summed from
-    0.0 in feature order, then the ranges are added in order, exactly as
-    the kernels do, so the kernel's D equals this one bit for bit."""
+    Each feature range of the kernel's plan (:func:`pass1_splits`) is
+    summed from 0.0 in feature order, then the ranges are added in order,
+    exactly as the kernels do, so the kernel's D equals this one bit for
+    bit."""
     xi = xp if xi is None else xi
     nb, n, p = xi.shape[0], xp.shape[0], xp.shape[1]
     xiT, xpT = xi.t(), xp.t()
-    splits = [(0, p)] if mixed else pass1_splits(nb, n, p)
+    splits = pass1_splits(nb, n, p)
     D = _dist_sum(xiT, xpT, recip, disc, *splits[0], mixed)
     for f0, f1 in splits[1:]:
         D.add_(_dist_sum(xiT, xpT, recip, disc, f0, f1, mixed))
     return D
 
 
-def accumulate_ref(xp, W, recip, disc, xi=None, *, mixed):
-    """Plain version of :func:`accumulate`: (p,) float32."""
+def accumulate_ref(xp, W, recip, disc, xi=None, *, mixed, n_disc=0):
+    """Plain version of :func:`accumulate`: (p,) float32.  ``n_disc``
+    places the kernel's feature tiles; these sums take no plan."""
     xi = xp if xi is None else xi
     nb, n, p = xi.shape[0], xp.shape[0], xp.shape[1]
     s = torch.empty(p, dtype=torch.float32, device=xp.device)
@@ -212,7 +218,7 @@ def accumulate_ref(xp, W, recip, disc, xi=None, *, mixed):
 def _check_inputs(xp, xi, recip, disc, W=None, *, mixed):
     """Raise unless every input is a contiguous float32 tensor of the
     expected shape on one device, with rows 16-byte aligned for the
-    continuous kernels; returns (nb, n, p)."""
+    kernels; returns (nb, n, p)."""
     named = {"xp": xp, "xi": xi, "recip": recip, "disc": disc}
     if W is not None:
         named["W"] = W
@@ -238,14 +244,14 @@ def _check_inputs(xp, xi, recip, disc, W=None, *, mixed):
         raise ValueError("empty input")
     if xp.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {xp.device}")
-    if not mixed:
-        rows = [xp, xi, recip] + ([W] if W is not None else [])
-        if (p % 4 or (W is not None and n % 4)
-                or any(t.data_ptr() % 16 for t in rows)):
-            raise ValueError(
-                f"the continuous kernels take 16-byte aligned rows (p, and "
-                f"n for W, multiples of 4, data 16-byte aligned); got "
-                f"nb, n, p = {nb}, {n}, {p}: pad features to TILE_FEATURES")
+    rows = ([xp, xi, recip] + ([disc] if mixed else [])
+            + ([W] if W is not None else []))
+    if (p % 4 or (W is not None and n % 4)
+            or any(t.data_ptr() % 16 for t in rows)):
+        raise ValueError(
+            f"the kernels take 16-byte aligned rows (p, and n for W, "
+            f"multiples of 4, data 16-byte aligned); got nb, n, p = {nb}, "
+            f"{n}, {p}: pad features to TILE_FEATURES")
     return nb, n, p
 
 
@@ -254,8 +260,8 @@ def dist_matrix(xp, recip, disc, xi=None, *, mixed):
     all samples ``xp`` (n, p); square (``xi = xp``) by default.
 
     ``mixed=False`` selects the all-continuous kernel (``disc`` is
-    ignored), which sums the feature ranges of :func:`pass1_splits` apart
-    and then in order.
+    ignored).  Either kernel sums the feature ranges of
+    :func:`pass1_splits` apart and then in order.
     """
     xi = xp if xi is None else xi
     nb, n, p = _check_inputs(xp, xi, recip, disc, mixed=mixed)
@@ -263,53 +269,57 @@ def dist_matrix(xp, recip, disc, xi=None, *, mixed):
         return dist_matrix_ref(xp, recip, disc, xi, mixed=mixed)
     lib = _build.load()
     D = torch.empty((nb, n), dtype=torch.float32, device=xp.device)
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    splits = pass1_splits(nb, n, p)
+    part = (torch.empty((len(splits), nb, n), dtype=torch.float32,
+                        device=xp.device) if len(splits) > 1 else None)
+    args = (D.data_ptr(), 0 if part is None else part.data_ptr(), nb, n, p,
+            splits[0][1], len(splits),
+            torch.cuda.current_stream(xp.device).cuda_stream)
     with torch.cuda.device(xp.device):
         if mixed:
             err = lib.fs_relief_pass1_mixed(
                 xi.data_ptr(), xp.data_ptr(), recip.data_ptr(),
-                disc.data_ptr(), D.data_ptr(), nb, n, p, stream)
+                disc.data_ptr(), *args)
         else:
-            splits = pass1_splits(nb, n, p)
-            part = (torch.empty((len(splits), nb, n), dtype=torch.float32,
-                                device=xp.device) if len(splits) > 1
-                    else None)
             err = lib.fs_relief_pass1_cont(
-                xi.data_ptr(), xp.data_ptr(), recip.data_ptr(),
-                D.data_ptr(), 0 if part is None else part.data_ptr(), nb, n,
-                p, splits[0][1], len(splits), stream)
+                xi.data_ptr(), xp.data_ptr(), recip.data_ptr(), *args)
     name = "relief_pass1_mixed" if mixed else "relief_pass1_cont"
     _build.check(err, name)
     launches[name] += 1
     return D
 
 
-def accumulate(xp, W, recip, disc, xi=None, *, mixed):
+def accumulate(xp, W, recip, disc, xi=None, *, mixed, n_disc=0):
     """Pass 2: per-feature scores (p,) from pair weights ``W`` (nb, n) of
     focal rows ``xi`` (default ``xp``) against all samples ``xp``.
 
-    The kernel writes one partial row per focal tile (and, continuous, per
-    sample span of :func:`pass2_plan`); they are summed here in a fixed
-    order, so the result is the same from run to run.
+    ``n_disc`` (a multiple of 4, ``mixed`` only) says that the discrete
+    columns are the first n_disc: the plan then keeps every block inside
+    one kind.  It places blocks only, since the kernel reads each column's
+    kind from ``disc``, so any ``disc`` is scored right.  The kernel writes
+    one partial row per focal tile and sample span of :func:`pass2_plan`;
+    they are summed here in a fixed order, so the result is the same from
+    run to run.
     """
     xi = xp if xi is None else xi
     nb, n, p = _check_inputs(xp, xi, recip, disc, W, mixed=mixed)
+    if n_disc % 4 or not 0 <= n_disc <= p or (n_disc and not mixed):
+        raise ValueError(f"n_disc must be a multiple of 4 in [0, {p}] and 0 "
+                         f"for the continuous kernel, got {n_disc}")
     if xp.device.type == "cpu":
         return accumulate_ref(xp, W, recip, disc, xi, mixed=mixed)
     lib = _build.load()
+    plan = pass2_plan(nb, n, p, n_disc)
+    partial = torch.empty((_cdiv(nb, plan.focal_rows) * plan.spans, p),
+                          dtype=torch.float32, device=xp.device)
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     with torch.cuda.device(xp.device):
         if mixed:
-            partial = torch.empty((_cdiv(nb, _PASS2_MIXED_ROWS), p),
-                                  dtype=torch.float32, device=xp.device)
             err = lib.fs_relief_pass2_mixed(
                 xi.data_ptr(), xp.data_ptr(), W.data_ptr(), recip.data_ptr(),
-                disc.data_ptr(), partial.data_ptr(), nb, n, p, stream)
+                disc.data_ptr(), partial.data_ptr(), nb, n, p, n_disc,
+                plan.groups, plan.rows, plan.span, stream)
         else:
-            plan = pass2_plan(nb, n, p)
-            partial = torch.empty(
-                (_cdiv(nb, plan.focal_rows) * plan.spans, p),
-                dtype=torch.float32, device=xp.device)
             err = lib.fs_relief_pass2_cont(
                 xi.data_ptr(), xp.data_ptr(), W.data_ptr(), recip.data_ptr(),
                 partial.data_ptr(), nb, n, p, plan.groups, plan.rows,
@@ -361,11 +371,13 @@ class BlockPlan(NamedTuple):
 
 
 def block_plan(n: int, p: int, device: torch.device,
-               algo: str = "multisurf") -> BlockPlan:
+               algo: str = "multisurf", *, n_disc: int = 0) -> BlockPlan:
     """Padded shape and focal block rows for an (n, p) fit of ``algo`` on
-    ``device``."""
+    ``device`` with ``n_disc`` discrete columns: the discrete and the
+    continuous run each pad to ``TILE_FEATURES`` (:func:`feature_positions`)."""
     n_pad = _round_up(max(n, 1), TILE_ROWS)
-    p_pad = _round_up(max(p, 1), TILE_FEATURES)
+    p_pad = max(TILE_FEATURES, _round_up(n_disc, TILE_FEATURES)
+                + _round_up(p - n_disc, TILE_FEATURES))
     per_pair = (_RELIEFF_BYTES_PER_PAIR if algo == "relieff"
                 else _BYTES_PER_PAIR)
     nb = _focal_block_rows(n_pad, TILE_ROWS, _block_budget_bytes(device),
@@ -377,12 +389,25 @@ def block_plan(n: int, p: int, device: torch.device,
 # Engine
 # ---------------------------------------------------------------------------
 
+def feature_positions(is_discrete: np.ndarray) -> np.ndarray:
+    """The padded column of each input column in the fused engine's layout:
+    the discrete columns first, then the continuous ones, each run in
+    column order and padded with zero columns to ``TILE_FEATURES``, so
+    that every float4 group of the kernels is of one kind.  Per-feature
+    scores do not depend on the column order."""
+    disc = np.asarray(is_discrete, bool)
+    d_run = _round_up(int(disc.sum()), TILE_FEATURES)
+    return np.where(disc, np.cumsum(disc) - 1, d_run + np.cumsum(~disc) - 1)
+
+
 def _fused_engine(xp, yv, valid, recip, disc, n_real, class_probs, *,
-                  algo, use_star, k, nb, mixed, pass1, pass2):
+                  algo, use_star, k, nb, n_disc, pass1, pass2):
     """Unnormalised scores (p_pad,): every focal block of nb rows runs
     pass 1 against all samples, the weight rules with its global row ids,
-    then pass 2; block scores are added in block order."""
+    then pass 2; block scores are added in block order.  The first n_disc
+    columns (a multiple of 4) are the discrete ones."""
     n_pad = xp.shape[0]
+    mixed = n_disc > 0
     scores = torch.zeros(xp.shape[1], dtype=torch.float32, device=xp.device)
     for b0 in range(0, n_pad, nb):
         xi = xp[b0:b0 + nb]
@@ -391,7 +416,8 @@ def _fused_engine(xp, yv, valid, recip, disc, n_real, class_probs, *,
             pass1(xp, recip, disc, xi=xi, mixed=mixed),
             yv[b0:b0 + nb], valid[b0:b0 + nb], iid, yv, valid, n_real,
             class_probs, algo=algo, use_star=use_star, k=k))
-        scores += pass2(xp, W, recip, disc, xi=xi, mixed=mixed)
+        scores += pass2(xp, W, recip, disc, xi=xi, mixed=mixed,
+                        n_disc=n_disc)
     return scores
 
 
@@ -420,20 +446,25 @@ def relief_fused_scores(
         x = torch.tensor(np.asarray(x), dtype=torch.float32)
     device = torch.device(x.device if device is None else device)
     n, p = x.shape
-    plan = block_plan(n, p, device, algo)
+    disc = np.asarray(torch.as_tensor(is_discrete).cpu(), bool)
+    plan = block_plan(n, p, device, algo, n_disc=int(disc.sum()))
+    d_run = _round_up(int(disc.sum()), TILE_FEATURES)   # padded run
+    pos = torch.as_tensor(feature_positions(disc), device=device)
 
     xp = torch.zeros((plan.n_pad, plan.p_pad), dtype=torch.float32,
                      device=device)
-    xp[:n, :p] = x
+    xp[:n].index_copy_(1, pos, x.to(device=device, dtype=torch.float32))
     yv = torch.full((plan.n_pad,), -1, dtype=torch.int64, device=device)
     yv[:n] = torch.as_tensor(np.asarray(y, np.int64), device=device)
     valid = torch.zeros(plan.n_pad, dtype=torch.float32, device=device)
     valid[:n] = 1.0
     recip2 = torch.zeros(plan.p_pad, dtype=torch.float32, device=device)
-    recip2[:p] = torch.as_tensor(recip, device=device)
-    disc = torch.as_tensor(is_discrete, device=device)
+    recip2.index_copy_(0, pos, torch.as_tensor(recip).to(
+        device=device, dtype=torch.float32))
+    # the discrete run's zero pad columns are discrete too: they never
+    # differ, and keep every float4 group of the run one kind
     disc2 = torch.zeros(plan.p_pad, dtype=torch.float32, device=device)
-    disc2[:p] = disc.to(torch.float32)
+    disc2[:d_run] = 1.0
     if class_probs is None:
         class_probs = np.zeros((1,), np.float32)
     cp = torch.as_tensor(np.asarray(class_probs, np.float32), device=device)
@@ -442,5 +473,5 @@ def relief_fused_scores(
     scores = _fused_engine(
         xp, yv, valid, recip2, disc2, n_real, cp,
         algo=algo, use_star=use_star, k=int(n_neighbors), nb=plan.nb,
-        mixed=bool(disc.any()), pass1=_pass1, pass2=_pass2)
-    return (scores[:p] / n_real).cpu().numpy()
+        n_disc=d_run, pass1=_pass1, pass2=_pass2)
+    return (scores.index_select(0, pos) / n_real).cpu().numpy()

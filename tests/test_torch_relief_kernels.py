@@ -167,11 +167,28 @@ def test_wrappers_use_plain_versions_on_cpu_only(rng):
 
 @pytest.mark.parametrize("bad", ["dtype", "contiguous", "shape", "W",
                                  "empty", "p_not_4", "unaligned",
-                                 "n_not_4"])
+                                 "n_not_4", "mixed_p_not_4",
+                                 "disc_unaligned", "n_disc_not_4",
+                                 "n_disc_cont"])
 def test_wrappers_reject_bad_inputs(bad, rng):
     xp, recip2, disc2 = _padded(rng, False)
     xp_t, r, d = _t(xp), _t(recip2[0]), _t(disc2[0])
     W = torch.zeros(N, N)
+    if bad in ("mixed_p_not_4", "disc_unaligned", "n_disc_not_4"):
+        if bad == "mixed_p_not_4":
+            xp_t, r, d = xp_t[:, :-1].contiguous(), r[:-1], d[:-1]
+        elif bad == "disc_unaligned":
+            d = torch.empty(P_PAD + 1)[1:].copy_(d)
+        with pytest.raises(ValueError):
+            if bad == "n_disc_not_4":
+                RC.accumulate(xp_t, W, r, d, mixed=True, n_disc=6)
+            else:
+                RC.dist_matrix(xp_t, r, d, mixed=True)
+        return
+    if bad == "n_disc_cont":
+        with pytest.raises(ValueError, match="n_disc"):
+            RC.accumulate(xp_t, W, r, d, mixed=False, n_disc=4)
+        return
     if bad == "dtype":
         xp_t = xp_t.double()
     elif bad == "contiguous":
@@ -316,6 +333,133 @@ def test_features_padded_to_4_as_to_32(monkeypatch, mixed, rng):
     assert_allclose(four, thirty_two, atol=1e-6, rtol=0)
 
 
+# ---------------------------------------------------------------------------
+# Mixed data: the engine orders columns by kind, the kernels plan per run
+# ---------------------------------------------------------------------------
+
+def _layout_data(rng, n, p, layout, ncls):
+    """Mixed data whose discrete columns (integers 0..2) are every third
+    column ("interleaved"), or those and a planted discrete column at the
+    last index ("planted-last", the label itself)."""
+    x, y, recip, disc = _mixed_data(rng, n, p, 0, ncls)
+    disc[::3] = True
+    x[:, disc] = rng.randint(0, 3, (n, int(disc.sum())))
+    if layout == "planted-last":
+        disc[-1] = True
+        x[:, -1] = y
+    recip = (1.0 / np.maximum(x.max(0) - x.min(0), 1e-9)).astype(np.float32)
+    return x, y, recip, disc
+
+
+@pytest.mark.parametrize("layout", ["interleaved", "planted-last"])
+@pytest.mark.parametrize("algo,star,k,ncls", CASES)
+def test_fused_engine_mixed_layouts_match_pallas_and_generic(
+        layout, algo, star, k, ncls, rng):
+    """Columns of both kinds in any order: the engine runs them discrete
+    first and returns the scores to column order."""
+    x, y, recip, disc = _layout_data(rng, N, P, layout, ncls)
+    if layout == "interleaved":
+        x[:, 7] += 0.7 * (y == 1)   # planted signal keeps the ranking apart
+    cp = np.bincount(y, minlength=ncls).astype(np.float32) / N
+    kw = dict(algo=algo, use_star=star, n_neighbors=k, class_probs=cp)
+    got = RC.relief_fused_scores(x, y, recip, disc, **kw)
+    pallas = relief_pallas_scores(x, y, recip, disc, interpret=True, **kw)
+    generic = _generic_scores(x, y, recip, disc, algo, star, k, cp)
+    for ref in (pallas, generic):
+        assert_allclose(got, ref, atol=1e-4)
+        assert_array_equal(np.argsort(got), np.argsort(ref))
+    if layout == "planted-last" and not star:   # * also scores far pairs
+        assert np.argmax(got) == P - 1
+
+
+@pytest.mark.parametrize("layout", ["interleaved", "planted-last"])
+@pytest.mark.parametrize("algo,star,k,ncls", CASES[:1] + CASES[-1:])
+def test_blocked_engine_mixed_layouts_match_square(monkeypatch, layout, algo,
+                                                   star, k, ncls, rng):
+    n, p = 150, 21
+    x, y, recip, disc = _layout_data(rng, n, p, layout, ncls)
+    cp = np.bincount(y, minlength=ncls).astype(np.float32) / n
+    kw = dict(algo=algo, use_star=star, n_neighbors=k, class_probs=cp)
+    square = RC.relief_fused_scores(x, y, recip, disc, **kw)
+    monkeypatch.setattr(RC, "_CPU_BLOCK_BYTES",
+                        RC._BYTES_PER_PAIR * 192 * RC.TILE_ROWS)
+    assert RC.block_plan(n, p, torch.device("cpu")).nb == 64
+    blocked = RC.relief_fused_scores(x, y, recip, disc, **kw)
+    assert_allclose(blocked, square, atol=2e-6, rtol=1e-6)
+    assert_array_equal(np.argsort(blocked), np.argsort(square))
+    if layout == "planted-last" and not star:
+        assert np.argmax(blocked) == p - 1
+
+
+@pytest.mark.parametrize("disc,expected,p_pad", [
+    ([0, 1, 0, 0, 1], [4, 0, 5, 6, 1], 8),   # 2 discrete: runs of 4 + 4
+    ([1, 1, 1, 1, 0], [0, 1, 2, 3, 4], 8),
+    ([0, 0, 0], [0, 1, 2], 4),                # one run: the identity
+    ([1] * 5, [0, 1, 2, 3, 4], 8),
+])
+def test_feature_positions(disc, expected, p_pad):
+    pos = RC.feature_positions(np.array(disc, bool))
+    assert pos.tolist() == expected
+    p = len(disc)
+    assert RC.block_plan(10, p, torch.device("cpu"),
+                         n_disc=sum(disc)).p_pad == p_pad
+    assert pos.max() < p_pad
+
+
+@pytest.mark.parametrize("nb,n,p,n_disc", [
+    (512, 150016, 100, 40),        # mixed-xl's focal block
+    (2048, 2048, 200, 40),         # mixed-fused
+    (4096, 4096, 16384, 16384),    # all-discrete
+    (128, 128, 100000, 30000),     # large-p, 30% discrete
+    (333, 1004, 44, 12),
+    (64, 64, 8, 4),
+])
+def test_mixed_plans(monkeypatch, nb, n, p, n_disc):
+    """Pass 2's feature tiles cover each run once, in order, and none
+    holds both kinds; pass 1's ranges are multiples of 4."""
+    _no_device(monkeypatch)
+    plan = RC.pass2_plan(nb, n, p, n_disc)
+    width = 4 * plan.groups     # relief_pass2.cu's tiles, in blockIdx.x order
+    tiles = [(f0, min(f1, f0 + width))
+             for s0, f1 in ((0, n_disc), (n_disc, p))
+             for f0 in range(s0, f1, width)]
+    assert tiles[0][0] == 0 and tiles[-1][1] == p
+    for (f0, f1), (g0, _) in zip(tiles, tiles[1:] + [(p, p)]):
+        assert f1 == g0 and 0 < f1 - f0 <= 4 * plan.groups
+        assert f0 % 4 == 0 and f1 % 4 == 0
+        assert f1 <= n_disc or f0 >= n_disc        # one kind a tile
+    assert plan.groups * plan.rows <= RC._PASS2_MAX_THREADS
+    assert (plan.spans - 1) * plan.span < n <= plan.spans * plan.span
+    for f0, f1 in RC.pass1_splits(nb, n, p):
+        assert f0 % 4 == 0 and f1 % 4 == 0
+
+
+@pytest.mark.parametrize("rows", [None, (4, 12)], ids=["square", "rect"])
+def test_split_mixed_dist_matrix_is_exact(monkeypatch, rows, rng):
+    """p >> n: mixed pass 1 sums 64 feature ranges apart, then in order;
+    on a grid whose sums are exact in float32 that equals the one-range
+    sum and JAX's Pallas kernel bit for bit."""
+    n, p = 16, 8192
+    x = (rng.randint(0, 4, (n, p)) / 4).astype(np.float32)
+    disc = np.zeros(p, np.float32)
+    disc[::3] = 1.0                                # interleaved kinds
+    recip = np.where(rng.rand(p) < 0.5, 1.0, 0.5).astype(np.float32)
+    xi = None if rows is None else x[rows[0]:rows[1]]
+    nb = n if rows is None else rows[1] - rows[0]
+    args = (_t(x), _t(recip), _t(disc))
+    xi_t = None if xi is None else _t(xi)
+    assert len(RC.pass1_splits(nb, n, p)) == 64
+    split = RC.dist_matrix_ref(*args, xi=xi_t, mixed=True)
+    assert torch.equal(RC.dist_matrix(*args, xi=xi_t, mixed=True), split)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(pallas_dist_matrix(
+            x, recip[None], disc[None], 8, n, 128, xi=xi, cont=False))
+    assert_array_equal(split.numpy(), ref)
+    monkeypatch.setattr(RC, "_PASS1_TARGET_BLOCKS", 1)   # one range
+    assert len(RC.pass1_splits(nb, n, p)) == 1
+    assert torch.equal(RC.dist_matrix_ref(*args, xi=xi_t, mixed=True), split)
+
+
 @pytest.mark.parametrize("p", [1, 3, 4, 5, 100, 101])
 def test_plans_pad_features_to_4(p):
     from fastselect_tpu_torch.ops import relief_hybrid as RH
@@ -358,7 +502,7 @@ def _fake_nvcc(monkeypatch, tmp_path, fail=""):
 def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     _build = _fake_nvcc(monkeypatch, tmp_path)
     units = [s.name for s in _build._units()]
-    assert "relief_pass1_cont.cu" in units and "cp_async.cuh" not in units
+    assert units == ["relief_pass1.cu", "relief_pass2.cu"]   # not headers
     lib = _build.build()
     assert lib == _build.library_path() and lib.exists()
     link = lib.read_text().split()
@@ -373,7 +517,7 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
 
 
 def test_build_failure_leaves_no_library(monkeypatch, tmp_path):
-    _build = _fake_nvcc(monkeypatch, tmp_path, fail="relief_pass2_cont.cu")
+    _build = _fake_nvcc(monkeypatch, tmp_path, fail="relief_pass2.cu")
     with pytest.raises(RuntimeError, match="nvcc failed"):
         _build.build()
     assert not _build.library_path().exists()

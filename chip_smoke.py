@@ -56,7 +56,31 @@ Phases, one or two lines each on stdout:
     continuous, the same with 100 columns cut to 0..2) against a TuRF that
     re-fits its base estimator each round;
 13. ``chi2`` on a float32 tensor of 2,000 x 200,000 counts on the card
-    against the float64 host path.
+    against the float64 host path;
+14. mrmr: ``mRMR(n_features_to_select=10)`` on 2,000 x 5,000 codes 0..4
+    with a binary y (the upstream mRMR grid's largest point), first and
+    warm, then MIQ: the (p, p) redundancy matrix stays on the card.  Held
+    against the streamed path (``FULL_REDUNDANCY_MAX_P`` set below p:
+    equal ``top_features_``, relevance equal bit for bit), one 1,024 x
+    1,024 pair tile's int8-GEMM tables against ``pair_tables_ref``
+    (equal) and its MI block of the matrix against the same reduction of
+    those tables (bit for bit), and 20 pairs against ``tests/oracles.py``;
+15. mrmr-stream: the same on 2,000 x 50,000 codes (upstream's GWAS-p
+    point), past ``FULL_REDUNDANCY_MAX_P``: relevance and the selected
+    columns against ``feature_target_tables_ref`` on the card, and the
+    greedy rerun over them;
+16. cfs: ``CFS()`` on make_classification(5,000 x 2,000) with a planted
+    column 0 and its noisy copy in column 1: column 0 selected, 1 not;
+    the streamed path (``FULL_SU_MAX_P`` below p) selects alike; 20 SU
+    pairs against ``tests/oracles.py``;
+17. cfs-stream: ``CFS()`` on 2,000 x 20,000 planted genotypes, past
+    ``FULL_SU_MAX_P``: search and prune rerun over the plain tables'
+    r_cf and SU columns select alike, column 0 among them.
+
+Phases 14-17 print their first and warm fit times, int8 GEMM operations
+(``relief_discrete.gemm_ops``) and rate, peak device memory, the host
+seconds of the greedy loop and the phase's own time; each must run int8
+GEMMs and launch no Relief kernel.
 
 Phases 4-6 are the main path of the four kernels: every kernel launch
 count is set to 0 before them and read after them, less the launches of
@@ -90,14 +114,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from fastselect_tpu_torch import MultiSURF, ReliefF, SURF, TuRF, _build, chi2
+from fastselect_tpu_torch import (CFS, MultiSURF, ReliefF, SURF, TuRF,
+                                  _build, chi2, mRMR)
 from fastselect_tpu_torch.models import _relief_base
+from fastselect_tpu_torch.models import cfs as cfs_mod
+from fastselect_tpu_torch.models import mrmr as mrmr_mod
+from fastselect_tpu_torch.ops import contingency as ct
 from fastselect_tpu_torch.ops import relief_cuda as rc
 from fastselect_tpu_torch.ops import relief_discrete as rd
 from fastselect_tpu_torch.ops import relief_hybrid as rh
 from fastselect_tpu_torch.ops.chi2_op import chi2_stats_exact
 from fastselect_tpu_torch.ops.relief import relief_engine
 from fastselect_tpu_torch.utils.preprocessing import analyze_features
+from fastselect_tpu_torch.utils.sklearn_compat import HAVE_SKLEARN
 
 # Kernel name -> (source, Pallas kernel it replaces)
 KERNELS = {
@@ -126,6 +155,8 @@ ORACLE_ATOL_SR = 5e-6  # as tests/test_surf.py and tests/test_relieff.py
 DEVICE_FIT_ATOL = 1e-6  # a tensor fit against the host-array fit (expected: 0)
 TURF_ATOL = 1e-5     # TuRF's fast scorers against its re-fitting loop
 CHI2_RTOL = 1e-4     # chi2 on the card against the float64 host path
+ORACLE_ATOL_MI = 1e-4  # MI and SU against tests/oracles.py (float64)
+PLAIN_ATOL_MI = 1e-6   # streamed statistics against the plain tables'
 INT8_PEAK_TOPS = 1979.0  # H100 SXM dense int8, NVIDIA's data sheet
 FP32_PEAK_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores (700 W)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -772,6 +803,260 @@ def chi2_phase(dev, n=2000, p=200000, c=5):
 
 
 # ---------------------------------------------------------------------------
+# mRMR and CFS on the contingency tables' int8 GEMMs
+# ---------------------------------------------------------------------------
+
+def selector_fit(dev, est, X, y):
+    """One fit of an mRMR or CFS on the card: (est, seconds, peak device
+    GB, int8 GEMM operations, host seconds of its greedy loop: mRMR's
+    ``_greedy_select``, CFS's search and prune, column reads included)."""
+    spent = [0.0]
+
+    def timed(fn):
+        def run_timed(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return run_timed
+
+    saved = (cfs_mod._best_first_search, cfs_mod._prune_redundant)
+    cfs_mod._best_first_search, cfs_mod._prune_redundant = map(timed, saved)
+    if isinstance(est, mRMR):
+        est._greedy_select = timed(est._greedy_select)
+    rd.reset_gemm_ops()
+    try:
+        est, sec, peak = timed_fit(dev, est, X, y)
+    finally:
+        cfs_mod._best_first_search, cfs_mod._prune_redundant = saved
+        vars(est).pop("_greedy_select", None)
+    return est, sec, peak, rd.gemm_ops, spent[0]
+
+
+def selector_phase(dev, label, make, X, y, warm=1):
+    """A first fit and ``warm`` more of ``make()`` on the card, checked to
+    run int8 GEMMs and no Relief kernel; prints one line and returns the
+    first fit's estimator and the timings."""
+    before = dict(rc.launches)
+    fits = [selector_fit(dev, make(), X, y) for _ in range(1 + warm)]
+    check(rc.launches == before, f"{label}: no Relief kernel launched")
+    check(all(f[3] > 0 for f in fits), f"{label}: int8 GEMMs ran")
+    est, first_s, peak, ops, greedy_s = fits[0]
+    warm_s = [f[1] for f in fits[1:]]
+    rate = ops / min(f[1] for f in fits) / 1e12
+    print(f"{label}: {type(est).__name__} X {X.shape[0]}x{X.shape[1]} "
+          f"{X.dtype}; fit {first_s:.4f} s, warm "
+          f"{', '.join(f'{t:.4f}' for t in warm_s)} s; gemm_ops "
+          f"{ops:.4e} ({rate:.3f} TOP/s over the fastest fit, "
+          f"{100 * rate / INT8_PEAK_TOPS:.3f}% of {INT8_PEAK_TOPS:.0f}); "
+          f"peak {max(f[2] for f in fits):.3f} GB; greedy loop on the host "
+          f"{', '.join(f'{f[4]:.4f}' for f in fits)} s; scikit-learn "
+          f"{'present' if HAVE_SKLEARN else 'absent (stand-ins)'}",
+          flush=True)
+    return dict(est=est, first_s=first_s, warm_s=warm_s, gemm_ops=ops,
+                peak_gb=max(f[2] for f in fits), greedy_s=greedy_s)
+
+
+def with_threshold(module, name, value, fn):
+    """fn() with ``module.name`` set to value (a streaming threshold)."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        return fn()
+    finally:
+        setattr(module, name, saved)
+
+
+def plain_stat(xd, v, s, n, stat):
+    """The statistic of every column of the codes xd (on the card) against
+    v from the plain bincount tables, float32 numpy."""
+    return ct.tables_stat(ct.feature_target_tables_ref(xd, v, s, s),
+                          n, stat).cpu().numpy()
+
+
+def mrmr_phase(dev, n=2000, p=5000):
+    """14. mRMR(10) at the upstream mRMR grid's largest point, 2,000 x 5,000
+    codes 0..4 with a binary y: the device-resident matrix path."""
+    t0 = time.perf_counter()
+    oracle = load_oracles()
+    rng = np.random.RandomState(14)
+    X = rng.randint(0, 5, (n, p))
+    y = rng.randint(0, 2, n)
+    res = selector_phase(dev, "mrmr", lambda: mRMR(n_features_to_select=10),
+                         X, y)
+    est = res["est"]
+    R = est._redundancy_dev
+    check(R is not None and R.device == dev and tuple(R.shape) == (p, p),
+          "mrmr: the redundancy matrix stays on the card")
+    miq = selector_fit(dev, mRMR(n_features_to_select=10, method="MIQ"),
+                       X, y)
+    check(len(set(miq[0].top_features_.tolist())) == 10, "mrmr: MIQ picks")
+    stream = with_threshold(mrmr_mod, "FULL_REDUNDANCY_MAX_P", p // 5,
+                            lambda: selector_fit(
+                                dev, mRMR(n_features_to_select=10), X, y))
+    check(stream[0].redundancy_matrix_ is None, "mrmr: streamed path")
+    check(np.array_equal(stream[0].top_features_, est.top_features_),
+          f"mrmr: streamed top_features_ {stream[0].top_features_} vs "
+          f"{est.top_features_}")
+    check(np.array_equal(stream[0].relevance_scores_,
+                         est.relevance_scores_),
+          "mrmr: streamed relevance equal bit for bit")
+    X_enc = mrmr_mod._encode_union(X, y)[0]
+    s = 5
+    tile = ct.pair_tile(n, p, s)
+    xt = ct.stage_codes(X_enc, s, dev)
+    rd.reset_gemm_ops()
+    got = ct.pair_tables(xt[:tile], xt[tile:2 * tile], n, s=s)
+    check(rd.gemm_ops > 0, "mrmr: the pair tile is an int8 GEMM")
+    want = ct.pair_tables_ref(X_enc[:, :tile], X_enc[:, tile:2 * tile], s=s,
+                              device=dev)
+    check(torch.equal(got, want), "mrmr: pair tile tables == plain tables")
+    block = ct.tables_stat(want, n, "mi")
+    check(torch.equal(R[:tile, tile:2 * tile], block),
+          f"mrmr: a {tile}-column block of R == the plain tables' MI, bit "
+          "for bit")
+    del xt, got, want, block
+    red = est.redundancy_matrix_
+    pairs = [rng.choice(p, 2, replace=False) for _ in range(20)]
+    err = max(abs(red[i, j] - oracle.mi_pair_bits(X_enc[:, i], X_enc[:, j]))
+              for i, j in pairs)
+    check(err <= ORACLE_ATOL_MI, f"mrmr: 20 pairs vs the oracle, err {err}")
+    sec = time.perf_counter() - t0
+    print(f"mrmr referees: MIQ fit {miq[1]:.4f} s; streamed path "
+          f"(FULL_REDUNDANCY_MAX_P {p // 5}) {stream[1]:.4f} s, top_features_ "
+          f"{est.top_features_.tolist()} equal, relevance equal bit for bit; "
+          f"pair tile {tile}x{tile} tables == pair_tables_ref, its MI block "
+          f"== R's bit for bit; 20 pairs vs tests/oracles.py max err "
+          f"{err:.3e}; phase {sec:.2f} s", flush=True)
+    return res, sec
+
+
+def mrmr_stream_phase(dev, n=2000, p=50000):
+    """15. mRMR(10) at upstream's GWAS-p point, 2,000 x 50,000 codes 0..4,
+    past FULL_REDUNDANCY_MAX_P: columns stream against X staged once."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(15)
+    X = rng.randint(0, 5, (n, p))
+    y = rng.randint(0, 2, n)
+    res = selector_phase(dev, "mrmr-stream",
+                         lambda: mRMR(n_features_to_select=10), X, y)
+    est = res["est"]
+    check(est.redundancy_matrix_ is None, "mrmr-stream: no (p, p) matrix")
+    X_enc, y_enc, _ = mrmr_mod._encode_union(X, y)
+    s = 5
+    xd = torch.from_numpy(X_enc).to(dev)
+    rel = plain_stat(xd, y_enc, s, n, "mi").astype(np.float64)
+    rel_err = float(np.abs(rel - est.relevance_scores_).max())
+    check(rel_err <= PLAIN_ATOL_MI, f"mrmr-stream: relevance err {rel_err}")
+    staged = ct.StagedColumnStats(X_enc, s, device=dev)
+    cols = {}
+
+    def plain_col(j):
+        if j not in cols:
+            cols[j] = plain_stat(xd, xd[:, j], s, n, "mi").astype(np.float64)
+            cols[j][j] = 0.0
+        return cols[j]
+
+    col_err = 0.0
+    for j in est.top_features_:
+        got = staged.column(j, "mi")
+        got[j] = 0.0
+        col_err = max(col_err, float(np.abs(got - plain_col(j)).max()))
+    check(col_err <= PLAIN_ATOL_MI, f"mrmr-stream: column err {col_err}")
+    again = mRMR(n_features_to_select=10)
+    again.n_features_in_ = p
+    sel = again._greedy_select(rel, plain_col)
+    check(np.array_equal(sel, est.top_features_),
+          f"mrmr-stream: greedy over the plain columns {sel} vs "
+          f"{est.top_features_}")
+    del xd, staged
+    sec = time.perf_counter() - t0
+    print(f"mrmr-stream referees: relevance and the 10 selected columns vs "
+          f"feature_target_tables_ref on the card, max err {rel_err:.3e}, "
+          f"{col_err:.3e}; the greedy over them selects "
+          f"{est.top_features_.tolist()} again; phase {sec:.2f} s",
+          flush=True)
+    return res, sec
+
+
+def cfs_phase(dev, n=5000, p=2000):
+    """16. CFS() (uniform, 10 bins) on make_classification(5,000 x 2,000,
+    n_informative=10, random_state=11) with column 0 = y + N(0, 0.1) and
+    column 1 its copy + N(0, 0.05): the device-resident SU matrix."""
+    t0 = time.perf_counter()
+    oracle = load_oracles()
+    X, y = make_classification(n_samples=n, n_features=p,
+                               n_informative=10, random_state=11)
+    rng = np.random.RandomState(16)
+    X[:, 0] = y + rng.normal(0, 0.1, n)
+    X[:, 1] = X[:, 0] + rng.normal(0, 0.05, n)
+    res = selector_phase(dev, "cfs", CFS, X, y)
+    est = res["est"]
+    sel = est.selected_indices_
+    check(est.effective_backend_ == dev.type, "cfs: effective_backend_")
+    check(len(sel) > 0 and 0 in sel and 1 not in sel,
+          f"cfs: selection {sel} holds 0 and not its copy 1")
+    stream = with_threshold(cfs_mod, "FULL_SU_MAX_P", p // 2,
+                            lambda: selector_fit(dev, CFS(), X, y))
+    check(np.array_equal(stream[0].selected_indices_, sel),
+          f"cfs: streamed selection {stream[0].selected_indices_}")
+    merit_err = abs(stream[0].merit_ - est.merit_)
+    check(merit_err <= 1e-6, f"cfs: streamed merit err {merit_err}")
+    X_enc, n_states = cfs_mod._encode(X, 10, "uniform")
+    s = int(max(n_states.max(), len(np.unique(y))))
+    R = ct.pairwise_stat_matrix_device(X_enc, s, "su", device=dev)[0]
+    pairs = [rng.choice(p, 2, replace=False).tolist() for _ in range(20)]
+    err = max(abs(float(R[i, j]) - oracle.su_pair(X_enc[:, i], X_enc[:, j]))
+              for i, j in pairs)
+    check(err <= ORACLE_ATOL_MI, f"cfs: 20 pairs vs the oracle, err {err}")
+    del R
+    sec = time.perf_counter() - t0
+    print(f"cfs referees: selected {sel.tolist()}, merit {est.merit_:.6f}; "
+          f"streamed path (FULL_SU_MAX_P {p // 2}) {stream[1]:.4f} s, equal "
+          f"selection, merit err {merit_err:.3e}; 20 SU pairs vs "
+          f"tests/oracles.py max err {err:.3e}; phase {sec:.2f} s",
+          flush=True)
+    return res, sec
+
+
+def cfs_stream_phase(dev, n=2000, p=20000):
+    """17. CFS() on 2,000 x 20,000 planted genotypes, past FULL_SU_MAX_P:
+    SU columns stream; search and prune rerun over the plain tables."""
+    t0 = time.perf_counter()
+    X, y = planted_genotypes(12, n, p, 2)
+    res = selector_phase(dev, "cfs-stream", CFS, X, y)
+    est = res["est"]
+    X_enc, n_states = cfs_mod._encode(X, 10, "uniform")
+    y_enc = np.unique(y, return_inverse=True)[1]
+    s = int(max(n_states.max(), y_enc.max() + 1))
+    xd = torch.from_numpy(X_enc).to(dev)
+    r_cf = plain_stat(xd, y_enc, s, n, "su")
+    cols = {}
+
+    def plain_col(j):
+        j = int(j)
+        if j not in cols:
+            cols[j] = plain_stat(xd, xd[:, j], s, n, "su")
+            cols[j][j] = 0.0
+        return cols[j]
+
+    sel = np.sort(np.asarray(cfs_mod._best_first_search(r_cf, plain_col),
+                             dtype=int))
+    sel = np.sort(np.asarray(cfs_mod._prune_redundant(sel, r_cf, plain_col),
+                             dtype=int))
+    check(np.array_equal(sel, est.selected_indices_),
+          f"cfs-stream: {est.selected_indices_} vs plain {sel}")
+    check(0 in sel, "cfs-stream: the 60% plant (column 0) is selected")
+    del xd
+    sec = time.perf_counter() - t0
+    print(f"cfs-stream referees: search and prune over the plain r_cf and "
+          f"SU columns select {sel.tolist()} again (merit "
+          f"{est.merit_:.6f}); phase {sec:.2f} s", flush=True)
+    return res, sec
+
+
+# ---------------------------------------------------------------------------
 # The kernels alone
 # ---------------------------------------------------------------------------
 
@@ -1126,6 +1411,11 @@ def main():
     # 13. chi2
     chi2_ms, chi2_host_s = chi2_phase(dev)
 
+    # 14-17. mRMR and CFS on the contingency tables' int8 GEMMs
+    selectors = {label: phase(dev) for label, phase in (
+        ("mrmr", mrmr_phase), ("mrmr-stream", mrmr_stream_phase),
+        ("cfs", cfs_phase), ("cfs-stream", cfs_stream_phase))}
+
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_launches[name], "max_abs_err": err[name],
@@ -1144,8 +1434,12 @@ def main():
           f"{', '.join(f'{t:.4f}' for t in head['warm_s'])} s (MIXED route "
           f"{head['mixed_s']:.4f} s); tensor fits int8 {dev_int8_s:.4f} s, "
           f"float32 {dev_n_s:.4f} s (host array {host_n:.4f} s); chi2 "
-          f"{chi2_ms:.4f} ms (host {chi2_host_s * 1e3:.4f} ms) on {smi}; "
-          f"chip_smoke {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"{chi2_ms:.4f} ms (host {chi2_host_s * 1e3:.4f} ms); "
+          + "; ".join(f"{label} first {res['first_s']:.4f} s, warm "
+                      f"{res['warm_s'][0]:.4f} s (phase {sec:.2f} s)"
+                      for label, (res, sec) in selectors.items())
+          + f" on {smi}; chip_smoke {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,16 +10,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.cfs import CFS
+from .models.mrmr import mRMR
 from .models.multisurf import MultiSURF
 from .models.relieff import ReliefF
 from .models.surf import SURF
 from .models.turf import TuRF
 from .utils.preprocessing import FeatureAnalysis
 
-_ESTIMATORS = {"MultiSURF": MultiSURF, "SURF": SURF, "ReliefF": ReliefF}
-_FITTED = ("n_features_in_", "feature_importances_", "top_features_",
-           "is_discrete_", "effective_backend_", "feature_names_in_",
-           "classes_")
+_ESTIMATORS = {"MultiSURF": MultiSURF, "SURF": SURF, "ReliefF": ReliefF,
+               "mRMR": mRMR, "CFS": CFS}
+_RELIEF_FITTED = ("n_features_in_", "feature_importances_", "top_features_",
+                  "is_discrete_", "effective_backend_", "feature_names_in_",
+                  "classes_")
+_FITTED = {"mRMR": ("n_features_in_", "relevance_scores_",
+                    "redundancy_matrix_", "top_features_",
+                    "feature_importances_", "unique_vals_"),
+           "CFS": ("n_features_in_", "selected_indices_", "support_mask_",
+                   "merit_", "effective_backend_", "feature_names_in_")}
+# the attribute that says a JAX estimator was fitted
+_FITTED_MARK = {"mRMR": "top_features_", "CFS": "support_mask_"}
 _BACKENDS = {"auto": "auto", "tpu": "auto", "cpu": "cpu", "gpu": "gpu"}
 
 
@@ -46,14 +56,16 @@ def _params_from_jax(est) -> dict:
 
 
 def estimator_from_jax(est):
-    """A fitted port ``MultiSURF``, ``SURF``, ``ReliefF`` or ``TuRF`` from
-    the fitted ``fastselect_tpu`` estimator of the same name: the same
-    parameters (``transfer_dtype``, a TPU staging option, is not ported)
-    and fitted state, so ``transform`` selects the same columns.  A JAX
-    ``backend='tpu'`` becomes ``'auto'``.  ``effective_backend_`` keeps
-    saying where the scores were computed.  A TuRF's Relief estimator
-    becomes the port's, with its parameters; any other estimator is kept
-    as it is.  Its fitted state is carried by ``save_state``."""
+    """A fitted port ``MultiSURF``, ``SURF``, ``ReliefF``, ``TuRF``,
+    ``mRMR`` or ``CFS`` from the fitted ``fastselect_tpu`` estimator of the
+    same name: the same parameters (``transfer_dtype``, a TPU staging
+    option, is not ported) and fitted state, so ``transform`` selects the
+    same columns.  A JAX ``backend='tpu'`` becomes ``'auto'``.
+    ``effective_backend_`` keeps saying where the scores were computed.  A
+    TuRF's Relief estimator becomes the port's, with its parameters; any
+    other estimator is kept as it is.  Its fitted state is carried by
+    ``save_state``.  An mRMR's redundancy matrix comes as the host array
+    (None past its streaming threshold)."""
     if type(est).__name__ == "TuRF" and hasattr(est, "top_features_"):
         params = est.get_params(deep=False)
         inner = _ESTIMATORS.get(type(params["estimator"]).__name__)
@@ -61,14 +73,16 @@ def estimator_from_jax(est):
             params["estimator"] = inner(**_params_from_jax(
                 params["estimator"]))
         return TuRF(**params).load_state(est.save_state())
-    cls = _ESTIMATORS.get(type(est).__name__)
-    if cls is None or not hasattr(est, "feature_importances_"):
+    name = type(est).__name__
+    cls = _ESTIMATORS.get(name)
+    if cls is None or not hasattr(est, _FITTED_MARK.get(
+            name, "feature_importances_")):
         raise TypeError("estimator_from_jax takes a fitted fastselect_tpu "
-                        "MultiSURF, SURF, ReliefF or TuRF")
+                        "MultiSURF, SURF, ReliefF, TuRF, mRMR or CFS")
     out = cls(**_params_from_jax(est))
-    for name in _FITTED:
-        if hasattr(est, name):
-            value = getattr(est, name)
-            setattr(out, name, value if isinstance(value, (int, str))
-                    else np.array(value))
+    for attr in _FITTED.get(name, _RELIEF_FITTED):
+        if hasattr(est, attr):
+            value = getattr(est, attr)
+            setattr(out, attr, value if value is None or isinstance(
+                value, (int, float, str)) else np.array(value))
     return out

@@ -185,11 +185,24 @@ X = rng.rand(60, 9).astype(np.float32)
 X[:, 2] = rng.randint(0, 3, 60)
 y = rng.randint(0, 2, 60)
 m = ft.MultiSURF(n_features_to_select=3, backend="cpu").fit(X, y)
+codes = rng.randint(0, 4, (60, 12))
+codes[:, 5] = y
+r = ft.mRMR(n_features_to_select=4, backend="cpu").fit(codes, y)
+Xc = rng.randn(80, 10)
+yc = rng.randint(0, 2, 80)
+Xc[:, 3] = yc + rng.normal(0, 0.2, 80)
+c = ft.CFS(backend="cpu").fit(Xc, yc)
+cq = ft.CFS(backend="cpu", strategy="quantile").fit(Xc, yc)
 print(json.dumps({{"jax": "jax" in sys.modules,
                    "sklearn": ft.utils.sklearn_compat.HAVE_SKLEARN,
                    "scores": m.feature_importances_.tolist(),
                    "top": m.top_features_.tolist(),
-                   "cols": m.transform(X).tolist()}}))
+                   "cols": m.transform(X).tolist(),
+                   "mrmr": r.top_features_.tolist(),
+                   "relevance": r.relevance_scores_.tolist(),
+                   "cfs": c.selected_indices_.tolist(),
+                   "cfs_quantile": cq.selected_indices_.tolist(),
+                   "merit": [c.merit_, cq.merit_]}}))
 """
 
 
@@ -204,12 +217,15 @@ def test_port_never_imports_jax(fresh_fit):
 
 
 def test_fit_without_sklearn_matches(fresh_fit):
-    """Without scikit-learn (as on a GPU host that lacks it) the estimator
-    fits through the minimal stand-in base and gives the same model."""
+    """Without scikit-learn (as on a GPU host that lacks it) the estimators
+    fit through the minimal stand-ins (base, validation, CFS's
+    KBinsDiscretizer) and give the same models."""
     blocked = _run(_FIT.format(prelude="sys.modules['sklearn'] = None"))
     normal = fresh_fit
     assert blocked["sklearn"] is False
-    for key in ("scores", "top", "cols"):
+    assert 5 in normal["mrmr"] and 3 in normal["cfs"]
+    for key in ("scores", "top", "cols", "mrmr", "relevance", "cfs",
+                "cfs_quantile", "merit"):
         assert blocked[key] == normal[key]
 
 

@@ -75,12 +75,33 @@ Phases, one or two lines each on stdout:
     pairs against ``tests/oracles.py``;
 17. cfs-stream: ``CFS()`` on 2,000 x 20,000 planted genotypes, past
     ``FULL_SU_MAX_P``: search and prune rerun over the plain tables'
-    r_cf and SU columns select alike, column 0 among them.
+    r_cf and SU columns select alike, column 0 among them;
+18. mdr: ``MDR(k=2, cv=5)`` on 2,000 x 200 genotypes (the upstream MDR
+    grid's largest k = 2 point) with a planted pure 2-locus interaction,
+    y = [(x_a + x_b) mod 3 == 0] with 10% of the labels flipped, first
+    and warm: (a, b) found with CVC 5/5, and every fold's best rank and
+    key equal to a full search through ``mdr_tables_ref``; then
+    mdr-large-n, the same planting at k = 2 on 120,000 x 30 (training
+    folds of 96,000: the key's bound 2PN past int32), each fold's winner
+    equal to a float64 host oracle's;
+19. mdr-k3: ``MDR(k=3, cv=5)`` on 1,000 x 500 (20,708,500 combos) with a
+    planted 3-locus interaction, first and warm: found with CVC 5/5; in
+    four chunks (the first, the planted combo's, the one before the last
+    and the last with its padded tail) the device-unranked combos equal
+    ``unrank_combos`` and the GEMM tables ``mdr_tables_ref``'s; each
+    fold's winner's BA and held-out BA equal numpy oracles, and no
+    sampled combo beats it;
+20. mdr-k4: ``MDR(k=4, cv=5)`` on 1,000 x 100 (3,921,225 combos, 81
+    cells) with a planted 4-locus interaction, found with CVC 5/5; the
+    tail chunk's tables equal the plain ones.
 
-Phases 14-17 print their first and warm fit times, int8 GEMM operations
+Phases 14-20 print their first and warm fit times, int8 GEMM operations
 (``relief_discrete.gemm_ops``) and rate, peak device memory, the host
-seconds of the greedy loop and the phase's own time; each must run int8
-GEMMs and launch no Relief kernel.
+seconds of the greedy loop (14-17) or outside MDR's search (18-20:
+folds, lookup tables, held-out BAs; staging apart) and the phase's own
+time, and 18-20 the share of the one-hots' HBM floor (bytes written and
+read over 3.35 TB/s) in the search; each must run int8 GEMMs and launch
+no Relief kernel.
 
 Phases 4-6 are the main path of the four kernels: every kernel launch
 count is set to 0 before them and read after them, less the launches of
@@ -106,6 +127,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import time
@@ -114,19 +136,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from fastselect_tpu_torch import (CFS, MultiSURF, ReliefF, SURF, TuRF,
+from fastselect_tpu_torch import (CFS, MDR, MultiSURF, ReliefF, SURF, TuRF,
                                   _build, chi2, mRMR)
 from fastselect_tpu_torch.models import _relief_base
 from fastselect_tpu_torch.models import cfs as cfs_mod
+from fastselect_tpu_torch.models import mdr as mdr_mod
 from fastselect_tpu_torch.models import mrmr as mrmr_mod
 from fastselect_tpu_torch.ops import contingency as ct
+from fastselect_tpu_torch.ops import mdr_op
 from fastselect_tpu_torch.ops import relief_cuda as rc
 from fastselect_tpu_torch.ops import relief_discrete as rd
 from fastselect_tpu_torch.ops import relief_hybrid as rh
 from fastselect_tpu_torch.ops.chi2_op import chi2_stats_exact
 from fastselect_tpu_torch.ops.relief import relief_engine
 from fastselect_tpu_torch.utils.preprocessing import analyze_features
-from fastselect_tpu_torch.utils.sklearn_compat import HAVE_SKLEARN
+from fastselect_tpu_torch.utils.sklearn_compat import (HAVE_SKLEARN,
+                                                       StratifiedKFold)
 
 # Kernel name -> (source, Pallas kernel it replaces)
 KERNELS = {
@@ -157,6 +182,7 @@ TURF_ATOL = 1e-5     # TuRF's fast scorers against its re-fitting loop
 CHI2_RTOL = 1e-4     # chi2 on the card against the float64 host path
 ORACLE_ATOL_MI = 1e-4  # MI and SU against tests/oracles.py (float64)
 PLAIN_ATOL_MI = 1e-6   # streamed statistics against the plain tables'
+MDR_BA_ATOL = 1e-6     # a fold winner's float32 BA against the float64 oracle
 INT8_PEAK_TOPS = 1979.0  # H100 SXM dense int8, NVIDIA's data sheet
 FP32_PEAK_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores (700 W)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -1057,6 +1083,337 @@ def cfs_stream_phase(dev, n=2000, p=20000):
 
 
 # ---------------------------------------------------------------------------
+# MDR on the tables' int8 GEMMs
+# ---------------------------------------------------------------------------
+
+def planted_interaction(seed, n, p, k, flip=0.1):
+    """Genotypes 0..2 drawn uniform by ``RandomState(seed)`` and a pure
+    k-locus interaction with no marginal effect, y = [(sum of the k
+    planted columns) mod 3 == 0], a share ``flip`` of the labels flipped:
+    (X uint8, y, the planted columns as a sorted tuple)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randint(0, 3, (n, p)).astype(np.uint8)
+    planted = tuple(sorted(int(c) for c in rng.choice(p, k, replace=False)))
+    y = (X[:, planted].astype(np.int64).sum(1) % 3 == 0).astype(np.int64)
+    y[rng.rand(n) < flip] ^= 1
+    return X, y, planted
+
+
+def combo_rank(p, combo):
+    """Lexicographic rank of a sorted combo among C(p, len(combo))."""
+    k, rank, prev = len(combo), 0, -1
+    for i, c in enumerate(combo):
+        rank += sum(math.comb(p - v - 1, k - i - 1)
+                    for v in range(prev + 1, c))
+        prev = c
+    return rank
+
+
+def mdr_fit(dev, est, X, y):
+    """One MDR fit on the card, with the scorer's staging and its search
+    timed apart (each up to a device sync): a dict of the estimator, the
+    fit's seconds, peak device GB, int8 GEMM operations and the seconds of
+    the staging, the search and the rest (folds, lookup tables, held-out
+    BAs) on the host."""
+    spent = {"stage": 0.0, "search": 0.0}
+    cls = mdr_op.MDRFoldScorer
+    saved = cls.__init__, cls.search
+
+    def timed(name, fn):
+        def run_timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spent[name] += time.perf_counter() - t0
+        return run_timed
+
+    cls.__init__, cls.search = timed("stage", saved[0]), timed(
+        "search", saved[1])
+    rd.reset_gemm_ops()
+    try:
+        est, sec, peak = timed_fit(dev, est, X, y)
+    finally:
+        cls.__init__, cls.search = saved
+    return dict(est=est, sec=sec, peak_gb=peak, gemm_ops=rd.gemm_ops,
+                stage_s=spent["stage"], search_s=spent["search"],
+                host_s=sec - spent["stage"] - spent["search"])
+
+
+def mdr_run(dev, label, make, X, y, planted, warm=1):
+    """A first fit and ``warm`` more of ``make()`` on the card, checked to
+    run int8 GEMMs and no Relief kernel and to find ``planted`` in every
+    fold; prints one line (times, GEMM operations and rate, the one-hots'
+    HBM floor, peak memory) and returns the first fit's estimator, its
+    GEMM operations and the fits' seconds."""
+    before = dict(rc.launches)
+    fits = [mdr_fit(dev, make(), X, y) for _ in range(1 + warm)]
+    est = fits[0]["est"]
+    check(rc.launches == before, f"{label}: no Relief kernel launched")
+    check(all(f["gemm_ops"] > 0 for f in fits), f"{label}: int8 GEMMs ran")
+    check(est.effective_backend_ == dev.type,
+          f"{label}: effective_backend_ {est.effective_backend_}")
+    check(est.best_interaction_ == planted and est.best_cvc_ == 5,
+          f"{label}: best {est.best_interaction_} CVC {est.best_cvc_}, "
+          f"planted {planted}")
+    n, p = X.shape
+    k = est.k
+    n_combos = math.comb(p, k)
+    fast = min(fits, key=lambda f: f["search_s"])
+    floor_s = (2 * n_combos * 3 ** k * mdr_op._round_up(n, 8)
+               / HBM_BYTES_PER_S)
+    rate = fits[0]["gemm_ops"] / min(f["sec"] for f in fits) / 1e12
+    # the operations that do work: the 2F fold-weight rows of A (the GEMM
+    # pads them to 32) times every real combo's 3^k one-hot rows over n
+    useful = 2 * (2 * est.cv) * n * 3 ** k * n_combos
+    useful_rate = useful / min(f["sec"] for f in fits) / 1e12
+
+    def secs(key):
+        return ", ".join(f"{f[key]:.4f}" for f in fits)
+
+    print(f"{label}: MDR(k={k}, cv=5) X {n}x{p} ({n_combos} combos, "
+          f"{3 ** k} cells); best {est.best_interaction_} CVC "
+          f"{est.best_cvc_}/5, mean held-out BA "
+          f"{est.best_mean_testing_ba_:.4f}; fit"
+          f"{' (first, warm)' if warm else ''} {secs('sec')} s; search "
+          f"{secs('search_s')} s, staging {secs('stage_s')} s, host outside "
+          f"them {secs('host_s')} s; "
+          f"gemm_ops {fits[0]['gemm_ops']:.4e} ({rate:.3f} TOP/s over the "
+          f"fastest fit, {100 * rate / INT8_PEAK_TOPS:.3f}% of "
+          f"{INT8_PEAK_TOPS:.0f}), useful operations {useful:.4e} "
+          f"(2*2F*n*3^k*C(p,k): {useful_rate:.3f} TOP/s, "
+          f"{100 * useful_rate / INT8_PEAK_TOPS:.3f}%); one-hot HBM floor "
+          f"{floor_s:.4f} s = "
+          f"{100 * floor_s / fast['search_s']:.1f}% of the fastest search; "
+          f"peak {max(f['peak_gb'] for f in fits):.3f} GB; scikit-learn "
+          f"{'present' if HAVE_SKLEARN else 'absent (stand-ins)'}",
+          flush=True)
+    return dict(est=est, first_s=fits[0]["sec"],
+                warm_s=[f["sec"] for f in fits[1:]],
+                gemm_ops=fits[0]["gemm_ops"])
+
+
+def mdr_folds(est, X, y):
+    """The folds and 0/1 fold weights an MDR fit of ``est`` takes."""
+    splits = list(StratifiedKFold(n_splits=est.cv, shuffle=True,
+                                  random_state=42).split(X, y))
+    return (splits,) + est._fold_weights(y, splits)
+
+
+def oracle_ba(X, y, combo):
+    """float64 balanced accuracy of a combo's MDR model on (X, y), by the
+    high-risk rule of tests/test_mdr.py:287-301."""
+    k = len(combo)
+    cells = X[:, list(combo)].astype(np.int64) @ (3 ** np.arange(
+        k - 1, -1, -1))
+    case = np.bincount(cells[y == 1], minlength=3 ** k).astype(np.float64)
+    ctrl = np.bincount(cells[y != 1], minlength=3 ** k).astype(np.float64)
+    P, N = case.sum(), ctrl.sum()
+    high = (ctrl == 0) | (case / np.maximum(ctrl, 1e-30) > P / N)
+    return (case[high].sum() / P + ctrl[~high].sum() / N) / 2
+
+
+def heldout_ba(X, y, train, test, combo):
+    """Held-out BA of a combo: its lookup table from the training fold
+    (case / (control + 1e-9) above the fold's case/control ratio),
+    predicted on the test fold, sensitivity and specificity averaged (a
+    class absent from the test fold counts 0)."""
+    k = len(combo)
+    w = 3 ** np.arange(k - 1, -1, -1)
+    cells = X[:, list(combo)].astype(np.int64) @ w
+    yt = y[train]
+    case = np.bincount(cells[train][yt == 1], minlength=3 ** k)
+    ctrl = np.bincount(cells[train][yt != 1], minlength=3 ** k)
+    lut = case / (ctrl + 1e-9) > case.sum() / ctrl.sum()
+    pred, truth = lut[cells[test]], y[test] == 1
+    sens = (pred & truth).sum() / truth.sum() if truth.any() else 0.0
+    spec = (~pred & ~truth).sum() / (~truth).sum() if (~truth).any() else 0.0
+    return 0.5 * (float(sens) + float(spec))
+
+
+def ref_search(dev, X, w_case, w_ctrl, k):
+    """Each fold's (best rank, best key) of a full search over the plain
+    bincount tables (``mdr_tables_ref``) on ``dev``, keyed on the host:
+    high-risk cells by the float64 rule of tests/test_mdr.py:287-301, the
+    key tp*N + tn*P in int64, the first maximum."""
+    p = X.shape[1]
+    combos = mdr_op.unrank_combos(p, k, 0, math.comb(p, k))
+    t = mdr_op.mdr_tables_ref(X, w_case, w_ctrl, combos, k,
+                              device=dev).cpu().numpy()
+    ranks, keys = [], []
+    for f in range(w_case.shape[0]):
+        case, ctrl = t[0, f], t[1, f]
+        P, N = int(w_case[f].sum()), int(w_ctrl[f].sum())
+        high = (ctrl == 0) | (case / np.maximum(ctrl, 1e-30) > P / N)
+        key = (case * high).sum(1) * N + (ctrl * ~high).sum(1) * P
+        ranks.append(int(np.argmax(key)))
+        keys.append(int(key[ranks[-1]]))
+    return np.asarray(ranks, np.int64), np.asarray(keys, np.int64)
+
+
+def f64_winners(X, y, splits):
+    """Each training fold's k = 2 winner by the float64 host oracle (the
+    rule of tests/test_mdr.py:287-301, the first maximum in lexicographic
+    order), every pair's 3 x 3 tables of a class from the Gram matrix of
+    its samples' float64 one-hots."""
+    p = X.shape[1]
+    a, b = mdr_op.unrank_combos(p, 2, 0, math.comb(p, 2)).T
+    winners = []
+    for train, _ in splits:
+        hot = (X[train][:, :, None] == np.arange(3)).reshape(len(train), -1)
+        hot = hot.astype(np.float64)
+        is_case = y[train] == 1
+        case, ctrl = ((h.T @ h).reshape(p, 3, p, 3)[a, :, b, :].reshape(
+            -1, 9) for h in (hot[is_case], hot[~is_case]))
+        P, N = float(is_case.sum()), float((~is_case).sum())
+        high = (ctrl == 0) | (case / np.maximum(ctrl, 1e-30) > P / N)
+        ba = ((case * high).sum(1) / P + (ctrl * ~high).sum(1) / N) / 2
+        i = int(np.argmax(ba))
+        winners.append((int(a[i]), int(b[i])))
+    return winners
+
+
+def chunk_tables_check(dev, label, scorer, X, w_case, w_ctrl, p, chunks):
+    """For each chunk start in ``chunks`` of a search over C(p, k): the
+    ranks the search scores, unranked on the device, equal
+    ``unrank_combos`` (a padded tail repeating the last combo), and the
+    GEMM tables of those combos equal ``mdr_tables_ref``'s.  Returns
+    (combos a chunk, combos checked)."""
+    k = scorer.k
+    n_combos = math.comb(p, k)
+    _, m = scorer.chunk_plan(n_combos, mdr_mod._COMBO_CHUNK)
+    tables = torch.from_numpy(mdr_op._comb_tables(p, k)).to(dev)
+    checked = 0
+    for r0 in chunks:
+        combos = mdr_op._unrank_device(scorer.chunk_ranks(r0, m, n_combos),
+                                       tables, k=k)
+        real = min(m, n_combos - r0)
+        want = mdr_op.unrank_combos(p, k, r0, r0 + real)
+        want = np.vstack([want, np.repeat(want[-1:], m - real, axis=0)])
+        check(np.array_equal(combos.cpu().numpy(), want),
+              f"{label}: device-unranked chunk at rank {r0}")
+        got = scorer.tables(combos)
+        ref = mdr_op.mdr_tables_ref(X, w_case, w_ctrl, combos, k,
+                                    device=dev)
+        check(torch.equal(got.to(torch.int64), ref),
+              f"{label}: GEMM tables == mdr_tables_ref at rank {r0}")
+        checked += m
+        del combos, got, ref
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return m, checked
+
+
+def mdr_phase(dev, n=2000, p=200, n_large=120000, p_large=30):
+    """18. MDR(k=2, cv=5) on 2,000 x 200 planted genotypes (the upstream
+    MDR grid's largest k = 2 point), then mdr-large-n at 120,000 x 30."""
+    t0 = time.perf_counter()
+    X, y, planted = planted_interaction(18, n, p, 2)
+    res = mdr_run(dev, "mdr", lambda: MDR(k=2, cv=5), X, y, planted)
+    est = res["est"]
+    splits, w_case, w_ctrl = mdr_folds(est, X, y)
+    scorer = mdr_op.MDRFoldScorer(X, w_case, w_ctrl, 2, device=dev)
+    _, keys, ranks = scorer.search(p, math.comb(p, 2),
+                                   chunk=mdr_mod._COMBO_CHUNK)
+    ref_ranks, ref_keys = ref_search(dev, X, w_case, w_ctrl, 2)
+    check(np.array_equal(ranks, ref_ranks) and np.array_equal(keys,
+                                                              ref_keys),
+          f"mdr: GEMM search ranks {ranks} keys {keys} vs plain tables' "
+          f"{ref_ranks} {ref_keys}")
+    del scorer
+    Xl, yl, planted_l = planted_interaction(181, n_large, p_large, 2)
+    large = mdr_run(dev, "mdr-large-n", lambda: MDR(k=2, cv=5), Xl, yl,
+                    planted_l, warm=0)
+    splits_l = mdr_folds(large["est"], Xl, yl)[0]
+    oracle = f64_winners(Xl, yl, splits_l)
+    check(oracle == large["est"]._fold_best,
+          f"mdr-large-n: fold winners {large['est']._fold_best} vs float64 "
+          f"oracle {oracle}")
+    n_train = len(splits_l[0][0])
+    sec = time.perf_counter() - t0
+    print(f"mdr referees: every fold's best rank and key == a full search "
+          f"over mdr_tables_ref keyed in numpy ({math.comb(p, 2)} combos, "
+          f"keys "
+          f"{keys.tolist()}); mdr-large-n's {len(splits_l)} fold winners "
+          f"(training folds of {n_train}) == the float64 oracle's; phase "
+          f"{sec:.2f} s", flush=True)
+    return res, large, sec
+
+
+def mdr_k3_phase(dev, n=1000, p=500):
+    """19. MDR(k=3, cv=5) on 1,000 x 500 (20,708,500 combos) with a planted
+    3-locus interaction, first and warm; four chunks' combos and tables
+    against the plain ones, and the fold winners against numpy oracles."""
+    t0 = time.perf_counter()
+    oracle = load_oracles()
+    X, y, planted = planted_interaction(19, n, p, 3)
+    res = mdr_run(dev, "mdr-k3", lambda: MDR(k=3, cv=5), X, y, planted)
+    est = res["est"]
+    splits, w_case, w_ctrl = mdr_folds(est, X, y)
+    scorer = mdr_op.MDRFoldScorer(X, w_case, w_ctrl, 3, device=dev)
+    n_combos = math.comb(p, 3)
+    _, m = scorer.chunk_plan(n_combos, mdr_mod._COMBO_CHUNK)
+    last = (n_combos - 1) // m * m
+    chunks = sorted({0, combo_rank(p, planted) // m * m, max(last - m, 0),
+                     last})
+    m, checked = chunk_tables_check(dev, "mdr-k3", scorer, X, w_case, w_ctrl,
+                                    p, chunks)
+    vals, _, ranks = scorer.search(p, n_combos, chunk=mdr_mod._COMBO_CHUNK)
+    del scorer
+    rng = np.random.RandomState(20)
+    sample = [tuple(np.sort(rng.choice(p, 3, replace=False)))
+              for _ in range(2000)]
+    ba_err = ho_err = 0.0
+    for f, (train, test) in enumerate(splits):
+        win = est._fold_best[f]
+        check(tuple(mdr_op.unrank_combos(p, 3, int(ranks[f]),
+                                         int(ranks[f]) + 1)[0]) == win,
+              f"mdr-k3: fold {f} search winner")
+        want = oracle.mdr_balanced_accuracy(X[train], y[train], win)
+        ba_err = max(ba_err, abs(vals[f] - want))
+        ho_err = max(ho_err, abs(est._fold_test_ba[f]
+                                 - heldout_ba(X, y, train, test, win)))
+        beaten = max(oracle_ba(X[train], y[train], c) for c in sample)
+        check(beaten <= want, f"mdr-k3: fold {f}: a sampled combo's BA "
+              f"{beaten} beats the winner's {want}")
+    check(ba_err <= MDR_BA_ATOL, f"mdr-k3: winners' BA vs oracle {ba_err}")
+    check(ho_err <= 1e-12, f"mdr-k3: held-out BAs vs oracle {ho_err}")
+    sec = time.perf_counter() - t0
+    print(f"mdr-k3 referees: chunks of {m} at ranks {chunks} (the last "
+          f"padded by {last + m - n_combos}): "
+          f"device-unranked combos == unrank_combos and GEMM tables == "
+          f"mdr_tables_ref ({checked} combos x 5 folds x 2 classes x 27 "
+          f"cells); fold winners' BA vs tests/oracles.py max err "
+          f"{ba_err:.3e}, held-out BA vs numpy {ho_err:.3e}, none of 2,000 "
+          f"sampled combos beats a winner; phase {sec:.2f} s", flush=True)
+    return res, sec
+
+
+def mdr_k4_phase(dev, n=1000, p=100):
+    """20. MDR(k=4, cv=5) on 1,000 x 100 (3,921,225 combos, 81 cells) with
+    a planted 4-locus interaction; the tail chunk's tables against the
+    plain ones."""
+    t0 = time.perf_counter()
+    X, y, planted = planted_interaction(20, n, p, 4)
+    res = mdr_run(dev, "mdr-k4", lambda: MDR(k=4, cv=5), X, y, planted,
+                  warm=0)
+    splits, w_case, w_ctrl = mdr_folds(res["est"], X, y)
+    scorer = mdr_op.MDRFoldScorer(X, w_case, w_ctrl, 4, device=dev)
+    n_combos = math.comb(p, 4)
+    _, m = scorer.chunk_plan(n_combos, mdr_mod._COMBO_CHUNK)
+    last = (n_combos - 1) // m * m
+    chunk_tables_check(dev, "mdr-k4", scorer, X, w_case, w_ctrl, p, [last])
+    del scorer
+    sec = time.perf_counter() - t0
+    print(f"mdr-k4 referees: the tail chunk (ranks {last}.., {m} combos, "
+          f"{last + m - n_combos} padded): device-unranked combos == "
+          f"unrank_combos and GEMM tables == mdr_tables_ref; phase "
+          f"{sec:.2f} s", flush=True)
+    return res, sec
+
+
+# ---------------------------------------------------------------------------
 # The kernels alone
 # ---------------------------------------------------------------------------
 
@@ -1416,6 +1773,11 @@ def main():
         ("mrmr", mrmr_phase), ("mrmr-stream", mrmr_stream_phase),
         ("cfs", cfs_phase), ("cfs-stream", cfs_stream_phase))}
 
+    # 18-20. MDR on the tables' int8 GEMMs
+    mdr, mdr_large, mdr_sec = mdr_phase(dev)
+    mdr_k3, k3_sec = mdr_k3_phase(dev)
+    mdr_k4, k4_sec = mdr_k4_phase(dev)
+
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_launches[name], "max_abs_err": err[name],
@@ -1438,6 +1800,11 @@ def main():
           + "; ".join(f"{label} first {res['first_s']:.4f} s, warm "
                       f"{res['warm_s'][0]:.4f} s (phase {sec:.2f} s)"
                       for label, (res, sec) in selectors.items())
+          + f"; mdr first {mdr['first_s']:.4f} s, warm "
+          f"{mdr['warm_s'][0]:.4f} s, mdr-large-n {mdr_large['first_s']:.4f} "
+          f"s (phase {mdr_sec:.2f} s); mdr-k3 first {mdr_k3['first_s']:.4f} "
+          f"s, warm {mdr_k3['warm_s'][0]:.4f} s (phase {k3_sec:.2f} s); "
+          f"mdr-k4 {mdr_k4['first_s']:.4f} s (phase {k4_sec:.2f} s)"
           + f" on {smi}; chip_smoke {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps(summary), flush=True)

@@ -12,12 +12,14 @@ Backends: ``backend='auto'|'cuda'|'gpu'|'cpu'`` (``'gpu'`` is an alias of
 from . import mutual_information
 from .models.cfs import CFS
 from .models.chi2 import chi2
+from .models.mdr import MDR
 from .models.mrmr import mRMR
 from .models.multisurf import MultiSURF
 from .models.relieff import ReliefF
 from .models.surf import SURF
 from .models.turf import TuRF
 
-__all__ = ["MultiSURF", "ReliefF", "SURF", "TuRF", "chi2", "mRMR", "CFS"]
+__all__ = ["ReliefF", "SURF", "MultiSURF", "TuRF", "mRMR", "chi2", "MDR",
+           "CFS"]
 
 __version__ = "0.1.0"

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .models.cfs import CFS
+from .models.mdr import MDR
 from .models.mrmr import mRMR
 from .models.multisurf import MultiSURF
 from .models.relieff import ReliefF
@@ -19,7 +20,7 @@ from .models.turf import TuRF
 from .utils.preprocessing import FeatureAnalysis
 
 _ESTIMATORS = {"MultiSURF": MultiSURF, "SURF": SURF, "ReliefF": ReliefF,
-               "mRMR": mRMR, "CFS": CFS}
+               "mRMR": mRMR, "CFS": CFS, "MDR": MDR}
 _RELIEF_FITTED = ("n_features_in_", "feature_importances_", "top_features_",
                   "is_discrete_", "effective_backend_", "feature_names_in_",
                   "classes_")
@@ -27,9 +28,12 @@ _FITTED = {"mRMR": ("n_features_in_", "relevance_scores_",
                     "redundancy_matrix_", "top_features_",
                     "feature_importances_", "unique_vals_"),
            "CFS": ("n_features_in_", "selected_indices_", "support_mask_",
-                   "merit_", "effective_backend_", "feature_names_in_")}
+                   "merit_", "effective_backend_", "feature_names_in_"),
+           "MDR": ("best_interaction_", "best_cvc_", "best_mean_testing_ba_",
+                   "best_model_lookup_table_", "classes_")}
 # the attribute that says a JAX estimator was fitted
-_FITTED_MARK = {"mRMR": "top_features_", "CFS": "support_mask_"}
+_FITTED_MARK = {"mRMR": "top_features_", "CFS": "support_mask_",
+                "MDR": "best_interaction_"}
 _BACKENDS = {"auto": "auto", "tpu": "auto", "cpu": "cpu", "gpu": "gpu"}
 
 
@@ -51,21 +55,23 @@ def analysis_from_jax(fa, device="cpu") -> FeatureAnalysis:
 def _params_from_jax(est) -> dict:
     params = est.get_params(deep=False)
     params.pop("transfer_dtype", None)
-    params["backend"] = _BACKENDS[params["backend"]]
+    params["backend"] = _BACKENDS[str(params["backend"]).lower()]
     return params
 
 
 def estimator_from_jax(est):
     """A fitted port ``MultiSURF``, ``SURF``, ``ReliefF``, ``TuRF``,
-    ``mRMR`` or ``CFS`` from the fitted ``fastselect_tpu`` estimator of the
-    same name: the same parameters (``transfer_dtype``, a TPU staging
-    option, is not ported) and fitted state, so ``transform`` selects the
-    same columns.  A JAX ``backend='tpu'`` becomes ``'auto'``.
-    ``effective_backend_`` keeps saying where the scores were computed.  A
+    ``mRMR``, ``CFS`` or ``MDR`` from the fitted ``fastselect_tpu``
+    estimator of the same name: the same parameters (``transfer_dtype``, a
+    TPU staging option, is not ported) and fitted state, so ``transform``
+    selects the same columns (an MDR's ``predict`` predicts the same).  A
+    JAX ``backend='tpu'`` becomes ``'auto'``.  ``effective_backend_``
+    keeps saying where the scores were computed.  A
     TuRF's Relief estimator becomes the port's, with its parameters; any
     other estimator is kept as it is.  Its fitted state is carried by
     ``save_state``.  An mRMR's redundancy matrix comes as the host array
-    (None past its streaming threshold)."""
+    (None past its streaming threshold); an MDR's ``best_interaction_``
+    stays a tuple."""
     if type(est).__name__ == "TuRF" and hasattr(est, "top_features_"):
         params = est.get_params(deep=False)
         inner = _ESTIMATORS.get(type(params["estimator"]).__name__)
@@ -78,11 +84,11 @@ def estimator_from_jax(est):
     if cls is None or not hasattr(est, _FITTED_MARK.get(
             name, "feature_importances_")):
         raise TypeError("estimator_from_jax takes a fitted fastselect_tpu "
-                        "MultiSURF, SURF, ReliefF, TuRF, mRMR or CFS")
+                        "MultiSURF, SURF, ReliefF, TuRF, mRMR, CFS or MDR")
     out = cls(**_params_from_jax(est))
     for attr in _FITTED.get(name, _RELIEF_FITTED):
         if hasattr(est, attr):
             value = getattr(est, attr)
             setattr(out, attr, value if value is None or isinstance(
-                value, (int, float, str)) else np.array(value))
+                value, (int, float, str, tuple)) else np.array(value))
     return out

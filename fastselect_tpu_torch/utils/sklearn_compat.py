@@ -5,8 +5,10 @@ optional dependency, so that a fit also runs on a GPU host without it.
 There the stand-ins below give the estimator the parts of the contract it
 uses: ``get_params``/``set_params``, ``clone``, the not-fitted check,
 input validation that rejects NaN and infinity, checks shapes and records
-``n_features_in_``, ``SelectorMixin.get_support``, and CFS's
-``KBinsDiscretizer`` for the 'uniform' and 'quantile' strategies.
+``n_features_in_``, ``SelectorMixin.get_support``, CFS's
+``KBinsDiscretizer`` for the 'uniform' and 'quantile' strategies, and
+MDR's ``ClassifierMixin``, ``StratifiedKFold`` (scikit-learn 1.9's folds),
+``check_array`` and ``unique_labels``.
 """
 
 from __future__ import annotations
@@ -38,24 +40,163 @@ def _clone(estimator, *, safe=True):
     return type(estimator)(**params)
 
 
+def _check_finite(X):
+    if not np.isfinite(X).all():
+        raise ValueError("Input X contains NaN." if np.isnan(X).any()
+                         else "Input X contains infinity.")
+
+
 def _check_array(X, dtype, ensure_2d):
     """``dtype="numeric"`` keeps a numeric dtype and casts object input
     to float64; a list of dtypes keeps X's dtype when it is listed,
-    else casts to the first."""
+    else casts to the first.  X becomes an array first and is then cast
+    as numpy casts (-1 wraps to 255 and 2.7 truncates to 2 in uint8, as
+    scikit-learn 1.9 casts them); NaN and infinity raise before the cast."""
+    X = np.asarray(X)
     if isinstance(dtype, str) and dtype == "numeric":
-        X = np.asarray(X)
         dtype = np.float64 if X.dtype.kind == "O" else X.dtype
     elif isinstance(dtype, (list, tuple)):
-        X = np.asarray(X)
         dtype = X.dtype if X.dtype in dtype else dtype[0]
-    X = np.asarray(X, dtype=dtype)
     if ensure_2d and X.ndim != 2:
         raise ValueError(f"Expected 2D array, got {X.ndim}D array "
                          "instead.")
-    if X.dtype.kind in "fc" and not np.isfinite(X).all():
-        raise ValueError("Input X contains NaN." if np.isnan(X).any()
-                         else "Input X contains infinity.")
+    was_float = X.dtype.kind in "fc"
+    if was_float:
+        _check_finite(X)
+    if dtype is not None:
+        X = X.astype(dtype, copy=False)
+    if not was_float and X.dtype.kind in "fc":
+        _check_finite(X)
     return X
+
+
+def _check_array_standin(X, *, dtype="numeric", ensure_2d=True):
+    """``sklearn.utils.validation.check_array`` for the arguments the port
+    passes: at least one sample and one feature."""
+    X = _check_array(X, dtype, ensure_2d)
+    for axis, what in ((0, "sample"), (1, "feature")):
+        if X.ndim > axis and X.shape[axis] < 1:
+            raise ValueError(f"Found array with 0 {what}(s) (shape="
+                             f"{X.shape}) while a minimum of 1 is required.")
+    return X
+
+
+def _unique_labels(*ys):
+    """``sklearn.utils.multiclass.unique_labels`` for binary and multiclass
+    targets: the sorted union of their labels."""
+    labels = set()
+    for y in ys:
+        y = np.asarray(y)
+        if y.dtype.kind == "f" and np.any(y != y.astype(np.int64)):
+            raise ValueError(f"Unknown label type: {ys!r}")
+        labels.update(np.unique(y).tolist() if y.dtype.kind == "O"
+                      else np.unique(y))
+    if len({isinstance(v, str) for v in labels}) > 1:
+        raise ValueError("Mix of label input types (string and number)")
+    return np.asarray(sorted(labels))
+
+
+class _ClassifierMixin:
+    """``sklearn.base.ClassifierMixin``: ``score`` is the (weighted)
+    accuracy of ``predict``."""
+
+    _estimator_type = "classifier"
+
+    def score(self, X, y, sample_weight=None):
+        hit = np.asarray(y).ravel() == np.asarray(self.predict(X)).ravel()
+        return float(np.average(hit, weights=sample_weight))
+
+
+class _StratifiedKFold:
+    """``sklearn.model_selection.StratifiedKFold`` as scikit-learn 1.9
+    assigns its folds (``_make_test_folds``): labels encoded in the order
+    of their first appearance, a class's share of each fold dealt round
+    robin over the sorted labels, and each class's fold numbers shuffled
+    in class order by one ``RandomState``.  Same errors and warning."""
+
+    def __init__(self, n_splits=5, *, shuffle=False, random_state=None):
+        if not isinstance(n_splits, (int, np.integer)):
+            raise ValueError("The number of folds must be of Integral type. "
+                             f"{n_splits} of type {type(n_splits)} was "
+                             "passed.")
+        if n_splits <= 1:
+            raise ValueError(
+                "k-fold cross-validation requires at least one train/test "
+                "split by setting n_splits=2 or more, got "
+                f"n_splits={n_splits}.")
+        if not isinstance(shuffle, bool):
+            raise TypeError(f"shuffle must be True or False; got {shuffle}")
+        if not shuffle and random_state is not None:
+            raise ValueError(
+                "Setting a random_state has no effect since shuffle is "
+                "False. You should leave random_state to its default "
+                "(None), or set shuffle=True.")
+        self.n_splits = int(n_splits)
+        self.shuffle = shuffle
+        self.random_state = random_state
+
+    def get_n_splits(self, X=None, y=None, groups=None):
+        return self.n_splits
+
+    def _rng(self):
+        if isinstance(self.random_state, np.random.RandomState):
+            return self.random_state
+        if self.random_state is None:
+            return np.random.mtrand._rand
+        return np.random.RandomState(self.random_state)
+
+    def _make_test_folds(self, y):
+        y = np.asarray(y)
+        if y.ndim != 1:
+            raise ValueError("Supported target types are: ('binary', "
+                             "'multiclass'). Got a target of more than one "
+                             "column instead.")
+        if y.dtype.kind == "f" and np.any(y != y.astype(np.int64)):
+            raise ValueError("Supported target types are: ('binary', "
+                             "'multiclass'). Got 'continuous' instead.")
+        rng = self._rng()
+        _, y_idx, y_inv = np.unique(y, return_index=True,
+                                    return_inverse=True)
+        _, class_perm = np.unique(y_idx, return_inverse=True)
+        y_encoded = class_perm[y_inv.reshape(-1)]
+        n_classes = len(y_idx)
+        y_counts = np.bincount(y_encoded)
+        if np.all(self.n_splits > y_counts):
+            raise ValueError(f"n_splits={self.n_splits} cannot be greater "
+                             "than the number of members in each class.")
+        if self.n_splits > y_counts.min():
+            warnings.warn(
+                f"The least populated class in y has only {y_counts.min()} "
+                f"members, which is less than n_splits={self.n_splits}.",
+                UserWarning)
+        y_order = np.sort(y_encoded)
+        allocation = np.asarray([
+            np.bincount(y_order[i::self.n_splits], minlength=n_classes)
+            for i in range(self.n_splits)])
+        test_folds = np.empty(len(y), dtype="i")
+        for k in range(n_classes):
+            folds_for_class = np.arange(self.n_splits).repeat(
+                allocation[:, k])
+            if self.shuffle:
+                rng.shuffle(folds_for_class)
+            test_folds[y_encoded == k] = folds_for_class
+        return test_folds
+
+    def split(self, X, y, groups=None):
+        n_samples = len(X)
+        if len(y) != n_samples:
+            raise ValueError("Found input variables with inconsistent "
+                             f"numbers of samples: [{n_samples}, {len(y)}]")
+        if self.n_splits > n_samples:
+            raise ValueError(
+                f"Cannot have number of splits n_splits={self.n_splits} "
+                "greater than the number of samples: "
+                f"n_samples={n_samples}.")
+        test_folds = self._make_test_folds(y)
+        indices = np.arange(n_samples)
+        for i in range(self.n_splits):
+            test = test_folds == i
+            yield indices[~test], indices[test]
 
 
 class _KBinsDiscretizer:
@@ -137,16 +278,23 @@ class _KBinsDiscretizer:
 
 
 try:
-    from sklearn.base import BaseEstimator, TransformerMixin, clone
+    from sklearn.base import (BaseEstimator, ClassifierMixin,
+                              TransformerMixin, clone)
     from sklearn.exceptions import NotFittedError
     from sklearn.feature_selection import SelectorMixin
+    from sklearn.model_selection import StratifiedKFold
     from sklearn.preprocessing import KBinsDiscretizer
-    from sklearn.utils.validation import (check_is_fitted, check_X_y,
-                                          validate_data)
+    from sklearn.utils.multiclass import unique_labels
+    from sklearn.utils.validation import (check_array, check_is_fitted,
+                                          check_X_y, validate_data)
     HAVE_SKLEARN = True
 except ImportError:
     clone = _clone
     KBinsDiscretizer = _KBinsDiscretizer
+    ClassifierMixin = _ClassifierMixin
+    StratifiedKFold = _StratifiedKFold
+    check_array = _check_array_standin
+    unique_labels = _unique_labels
     HAVE_SKLEARN = False
 
     class NotFittedError(ValueError, AttributeError):
@@ -234,6 +382,8 @@ except ImportError:
         return X, _check_y(X, y, y_numeric)
 
 
-__all__ = ["HAVE_SKLEARN", "BaseEstimator", "KBinsDiscretizer",
-           "NotFittedError", "SelectorMixin", "TransformerMixin",
-           "check_X_y", "check_is_fitted", "clone", "validate_data"]
+__all__ = ["HAVE_SKLEARN", "BaseEstimator", "ClassifierMixin",
+           "KBinsDiscretizer", "NotFittedError", "SelectorMixin",
+           "StratifiedKFold", "TransformerMixin", "check_X_y",
+           "check_array", "check_is_fitted", "clone", "unique_labels",
+           "validate_data"]

@@ -193,6 +193,9 @@ yc = rng.randint(0, 2, 80)
 Xc[:, 3] = yc + rng.normal(0, 0.2, 80)
 c = ft.CFS(backend="cpu").fit(Xc, yc)
 cq = ft.CFS(backend="cpu", strategy="quantile").fit(Xc, yc)
+G = rng.randint(0, 3, (90, 7))
+yg = ((G[:, 1] + G[:, 4]) % 3 == 0).astype(int)
+md = ft.MDR(k=2, cv=3).fit(G, yg)
 print(json.dumps({{"jax": "jax" in sys.modules,
                    "sklearn": ft.utils.sklearn_compat.HAVE_SKLEARN,
                    "scores": m.feature_importances_.tolist(),
@@ -202,7 +205,12 @@ print(json.dumps({{"jax": "jax" in sys.modules,
                    "relevance": r.relevance_scores_.tolist(),
                    "cfs": c.selected_indices_.tolist(),
                    "cfs_quantile": cq.selected_indices_.tolist(),
-                   "merit": [c.merit_, cq.merit_]}}))
+                   "merit": [c.merit_, cq.merit_],
+                   "mdr": [list(md.best_interaction_), md.best_cvc_,
+                           md.best_mean_testing_ba_,
+                           md.best_model_lookup_table_.tolist(),
+                           md.predict(G).tolist(), md.score(G, yg)],
+                   "fastselect_tpu": "fastselect_tpu" in sys.modules}}))
 """
 
 
@@ -214,18 +222,22 @@ def fresh_fit():
 
 def test_port_never_imports_jax(fresh_fit):
     assert fresh_fit["jax"] is False and fresh_fit["sklearn"] is True
+    assert fresh_fit["fastselect_tpu"] is False
 
 
 def test_fit_without_sklearn_matches(fresh_fit):
     """Without scikit-learn (as on a GPU host that lacks it) the estimators
     fit through the minimal stand-ins (base, validation, CFS's
-    KBinsDiscretizer) and give the same models."""
+    KBinsDiscretizer, MDR's StratifiedKFold, ClassifierMixin, check_array
+    and unique_labels) and give the same models."""
     blocked = _run(_FIT.format(prelude="sys.modules['sklearn'] = None"))
     normal = fresh_fit
     assert blocked["sklearn"] is False
     assert 5 in normal["mrmr"] and 3 in normal["cfs"]
+    assert normal["mdr"][:2] == [[1, 4], 3]
+    assert blocked["jax"] is False and blocked["fastselect_tpu"] is False
     for key in ("scores", "top", "cols", "mrmr", "relevance", "cfs",
-                "cfs_quantile", "merit"):
+                "cfs_quantile", "merit", "mdr"):
         assert blocked[key] == normal[key]
 
 

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where the device time of one warm fit goes, by kernel.
 
-    python3 tools/profile_fit.py [mixed-xl|mrmr|mrmr-stream|cfs|cfs-stream]
+    python3 tools/profile_fit.py [mixed-xl|mrmr|mrmr-stream|cfs|cfs-stream|
+                                  mdr|mdr-k3|mdr-k4]
 
 Fits chip_smoke.py's data of the named phase once to warm up, then once
 under ``torch.profiler`` on one CUDA device: ``MultiSURF(10)`` on
 mixed-xl (the default; 150,000 x 100, columns 0-39 cut to 0..2: the fused
 engine's MIXED kernels over focal blocks), ``mRMR(10)`` on 2,000 x 5,000
 or 2,000 x 50,000 codes, ``CFS()`` on 5,000 x 2,000 continuous data or
-2,000 x 20,000 genotypes.  Prints the device time of the kernels that
-took the most, their share of the fit's wall time, and the device's busy
+2,000 x 20,000 genotypes, ``MDR(k, cv=5)`` on planted genotypes (k = 2
+on 2,000 x 200, 3 on 1,000 x 500, 4 on 1,000 x 100).  Prints the device
+time of the kernels that took the most, their share of the fit's wall
+time, and the device's busy
 share (device time of all kernels over the wall time; one stream, so
 kernels do not overlap); for mRMR and CFS also the host seconds of their
 input validation and encoding alone.  The last line is one JSON object.
@@ -28,13 +31,16 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from chip_smoke import (make_classification, planted_genotypes,  # noqa: E402
-                        quantized)
-from fastselect_tpu_torch import CFS, MultiSURF, mRMR  # noqa: E402
+                        planted_interaction, quantized)
+from fastselect_tpu_torch import CFS, MDR, MultiSURF, mRMR  # noqa: E402
 from fastselect_tpu_torch.models import cfs as cfs_mod  # noqa: E402
 from fastselect_tpu_torch.models import mrmr as mrmr_mod  # noqa: E402
 from fastselect_tpu_torch.utils import sklearn_compat as skc  # noqa: E402
 
 TOP = 15
+# chip_smoke.py's MDR phases: (k, seed, n, p)
+MDR_PHASES = {"mdr": (2, 18, 2000, 200), "mdr-k3": (3, 19, 1000, 500),
+              "mdr-k4": (4, 20, 1000, 100)}
 
 
 def phase_data(name):
@@ -54,6 +60,10 @@ def phase_data(name):
                                        y_numeric=True)
             return mrmr_mod._encode_union(Xv, yv)
         return lambda: mRMR(n_features_to_select=10), X, y, encode
+    if name in MDR_PHASES:
+        k, seed, n, p = MDR_PHASES[name]
+        X, y, _ = planted_interaction(seed, n, p, k)
+        return lambda: MDR(k=k, cv=5), X, y, None
     if name == "cfs":
         X, y = make_classification(n_samples=5000, n_features=2000,
                                    n_informative=10, random_state=11)
@@ -108,9 +118,9 @@ def main() -> int:
             f"; host validation and encoding alone {encode_s:.4f} s")
     print(f"{name} warm fit: wall {wall_us / 1e6:.4f} s, device busy "
           f"{busy_us / 1e6:.4f} s ({100 * busy_us / wall_us:.1f}%){host}")
-    for name, dev_us, count in rows[:TOP]:
+    for kernel, dev_us, count in rows[:TOP]:
         print(f"{dev_us / 1e3:10.3f} ms {100 * dev_us / wall_us:5.1f}% "
-              f"{count:6d}x  {name[:100]}")
+              f"{count:6d}x  {kernel[:100]}")
     print(json.dumps({"device": smi, "phase": name,
                       "wall_s": wall_us / 1e6, "busy_s": busy_us / 1e6,
                       "encode_s": encode_s,

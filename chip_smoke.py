@@ -93,7 +93,25 @@ Phases, one or two lines each on stdout:
     sampled combo beats it;
 20. mdr-k4: ``MDR(k=4, cv=5)`` on 1,000 x 100 (3,921,225 combos, 81
     cells) with a planted 4-locus interaction, found with CVC 5/5; the
-    tail chunk's tables equal the plain ones.
+    tail chunk's tables equal the plain ones;
+21. the multi-device layer on a mesh of four shards on the first card
+    (and on every card, where there is more than one), each beside the
+    phase whose data it reuses and held against that phase's one-device
+    result: mesh-large-n (phase 4's fit through the automatic route to
+    ``sharded_relief_scores``: the continuous kernels on every shard) and
+    mesh-mixed (phase 6's 150-state input, ``sharded_relief_scores``
+    called directly: the MIXED kernels), after phase 6; mesh-snp (phase
+    7's genotypes, routed to the feature shard), after phase 7; mesh-v2
+    (tier-v2's data through the sample shard with class-sorted blocks
+    dealt) and mesh-ring (the same with ``_RING_BYTES`` below the codes'
+    bytes: the ring and its skip table), after phase 8; the sharded chi2
+    inside phase 13; mesh-mdr (``MDR(k=3, cv=5)`` through
+    ``ShardedMDRFoldScorer``: fold ranks and keys equal to phase 19's) and
+    mesh-stats (mrmr's MI matrix with sharded pair tiles, bit for bit)
+    after phase 20.  Each prints its time and peak memory;
+22. profiling: ``utils.profiling.timed_fit`` on large-n, one fit's
+    ``phase`` records at INFO, and one fit traced by
+    ``utils.profiling.trace`` into ``build/trace-large-n/``.
 
 Phases 14-20 print their first and warm fit times, int8 GEMM operations
 (``relief_discrete.gemm_ops``) and rate, peak device memory, the host
@@ -102,6 +120,11 @@ folds, lookup tables, held-out BAs; staging apart) and the phase's own
 time, and 18-20 the share of the one-hots' HBM floor (bytes written and
 read over 3.35 TB/s) in the search; each must run int8 GEMMs and launch
 no Relief kernel.
+
+Each mesh fit sets the launch counts and ``relief_discrete.gemm_ops`` to
+0 before it and reads them after it: the continuous layouts must launch
+their kernels on the shards, the discrete ones run int8 GEMMs and launch
+no Relief kernel, and each must reach its layout's function.
 
 Phases 4-6 are the main path of the four kernels: every kernel launch
 count is set to 0 before them and read after them, less the launches of
@@ -127,6 +150,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -137,19 +161,24 @@ import numpy as np
 import torch
 
 from fastselect_tpu_torch import (CFS, MDR, MultiSURF, ReliefF, SURF, TuRF,
-                                  _build, chi2, mRMR)
+                                  _build, chi2, mRMR, parallel)
 from fastselect_tpu_torch.models import _relief_base
 from fastselect_tpu_torch.models import cfs as cfs_mod
 from fastselect_tpu_torch.models import mdr as mdr_mod
 from fastselect_tpu_torch.models import mrmr as mrmr_mod
 from fastselect_tpu_torch.ops import contingency as ct
 from fastselect_tpu_torch.ops import mdr_op
+from fastselect_tpu_torch.ops import relief as relief_mod
 from fastselect_tpu_torch.ops import relief_cuda as rc
 from fastselect_tpu_torch.ops import relief_discrete as rd
 from fastselect_tpu_torch.ops import relief_hybrid as rh
 from fastselect_tpu_torch.ops.chi2_op import chi2_stats_exact
 from fastselect_tpu_torch.ops.relief import relief_engine
+from fastselect_tpu_torch.parallel import feature_shard
+from fastselect_tpu_torch.parallel import sharded as psh
+from fastselect_tpu_torch.utils import profiling
 from fastselect_tpu_torch.utils.preprocessing import analyze_features
+from fastselect_tpu_torch.utils.profiling import PEAKS
 from fastselect_tpu_torch.utils.sklearn_compat import (HAVE_SKLEARN,
                                                        StratifiedKFold)
 
@@ -178,14 +207,18 @@ FIT_ATOL = 1e-4      # fitted scores against the plain-pass engine
 ORACLE_ATOL = 2e-6   # against tests/oracles.py, as tests/test_multisurf.py
 ORACLE_ATOL_SR = 5e-6  # as tests/test_surf.py and tests/test_relieff.py
 DEVICE_FIT_ATOL = 1e-6  # a tensor fit against the host-array fit (expected: 0)
+DISC_TOL = (2e-7, 1e-6)  # an all-discrete mesh fit against one device's
+#                         (atol, rtol; tests/test_sharding.py:213)
 TURF_ATOL = 1e-5     # TuRF's fast scorers against its re-fitting loop
 CHI2_RTOL = 1e-4     # chi2 on the card against the float64 host path
 ORACLE_ATOL_MI = 1e-4  # MI and SU against tests/oracles.py (float64)
 PLAIN_ATOL_MI = 1e-6   # streamed statistics against the plain tables'
 MDR_BA_ATOL = 1e-6     # a fold winner's float32 BA against the float64 oracle
-INT8_PEAK_TOPS = 1979.0  # H100 SXM dense int8, NVIDIA's data sheet
-FP32_PEAK_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores (700 W)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+# the bounds' card, an H100 SXM at 700 W (NVIDIA's data sheet)
+_H100 = PEAKS["NVIDIA H100 80GB HBM3"]
+INT8_PEAK_TOPS = _H100.int8_tops                # dense int8, TOP/s
+FP32_PEAK_FLOPS = _H100.fp32_tflops * 1e12      # outside the tensor cores
+HBM_BYTES_PER_S = _H100.hbm_gbps * 1e9          # device memory
 ALGO = {"MultiSURF": "multisurf", "SURF": "surf", "ReliefF": "relieff"}
 
 
@@ -799,16 +832,19 @@ def turf_phase(dev, label, X, y, kind):
           f"top_features_ {fast.top_features_.tolist()} equal", flush=True)
 
 
-def chi2_phase(dev, n=2000, p=200000, c=5):
+def chi2_phase(dev, n=2000, p=200000, c=5, meshes=()):
     """chi2 on a float32 tensor of counts on the card (by default the
     upstream benchmark's 2,000 x 200,000, counts 0..4, 5 classes) against
-    the float64 host path."""
+    the float64 host path; then, for each mesh of ``meshes`` (mesh-stats),
+    ``sharded_chi2_stats`` on the same tensor against it."""
     gen = torch.Generator(device=dev).manual_seed(0)
     Xt = torch.randint(0, 5, (n, p), generator=gen, device=dev,
                        dtype=torch.float32)
     y = np.random.RandomState(0).randint(0, c, n)
     stats, pv = chi2(Xt, y)                       # first call
     dev_ms = cuda_ms(lambda: chi2(Xt, y), 3)
+    sharded = [(mesh,) + mesh_timed(mesh, lambda: parallel.sharded_chi2_stats(
+        Xt, y, c, devices=mesh)) for mesh in meshes]
     X = Xt.cpu().numpy()
     del Xt
     torch.cuda.empty_cache()
@@ -825,6 +861,15 @@ def chi2_phase(dev, n=2000, p=200000, c=5):
           f"{dev_ms:.4f} ms a call (host array in float64: "
           f"{host_s * 1e3:.4f} ms); max relative difference to the float64 "
           f"host path {rel:.3e}", flush=True)
+    for mesh, got, sec, peak in sharded:
+        rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                           1e-300)))
+        check(np.allclose(got, want, rtol=CHI2_RTOL, atol=0),
+              f"mesh-stats: sharded chi2 max relative difference {rel}")
+        print(f"mesh-stats: sharded_chi2_stats on the {n}x{p} tensor, "
+              f"{len(mesh)} shards ({mesh_name(mesh)}): {sec * 1e3:.4f} ms "
+              f"(first call), peak {peak:.2f} GB; max relative difference "
+              f"to the float64 host path {rel:.3e}", flush=True)
     return dev_ms, host_s
 
 
@@ -1359,7 +1404,9 @@ def mdr_k3_phase(dev, n=1000, p=500):
                      last})
     m, checked = chunk_tables_check(dev, "mdr-k3", scorer, X, w_case, w_ctrl,
                                     p, chunks)
-    vals, _, ranks = scorer.search(p, n_combos, chunk=mdr_mod._COMBO_CHUNK)
+    vals, keys, ranks = scorer.search(p, n_combos,
+                                      chunk=mdr_mod._COMBO_CHUNK)
+    res.update(keys=keys, ranks=ranks, X=X, y=y, planted=planted)
     del scorer
     rng = np.random.RandomState(20)
     sample = [tuple(np.sort(rng.choice(p, 3, replace=False)))
@@ -1411,6 +1458,255 @@ def mdr_k4_phase(dev, n=1000, p=100):
           f"unrank_combos and GEMM tables == mdr_tables_ref; phase "
           f"{sec:.2f} s", flush=True)
     return res, sec
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer on a mesh of shards (several on one card)
+# ---------------------------------------------------------------------------
+
+def mesh_name(mesh):
+    return "+".join(str(d) for d in mesh)
+
+
+class MeshRoute:
+    """Within the block, the automatic routes take ``mesh``
+    (``relief._mesh_devices``), ``_RING_BYTES`` is ``ring_bytes`` when
+    given, and each (module, name) in ``spies`` counts its calls in
+    ``calls``."""
+
+    def __init__(self, mesh, spies=(), ring_bytes=None):
+        self.mesh, self.spies, self.ring_bytes = mesh, spies, ring_bytes
+        self.calls = []
+
+    def __enter__(self):
+        self.saved = [(relief_mod, "_mesh_devices", relief_mod._mesh_devices),
+                      (relief_mod, "_RING_BYTES", relief_mod._RING_BYTES)]
+        relief_mod._mesh_devices = lambda device: list(self.mesh)
+        if self.ring_bytes is not None:
+            relief_mod._RING_BYTES = self.ring_bytes
+        for module, name in self.spies:
+            orig = getattr(module, name)
+            self.saved.append((module, name, orig))
+
+            def spy(*a, _name=name, _orig=orig, **k):
+                self.calls.append(_name)
+                return _orig(*a, **k)
+            setattr(module, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, value in reversed(self.saved):
+            setattr(module, name, value)
+
+
+def mesh_timed(mesh, fn):
+    """(fn(), seconds, peak GB over the mesh's devices) with every device
+    synchronised at both ends and its peak statistics reset before."""
+    devs = psh.distinct(mesh)
+    for d in devs:
+        torch.cuda.reset_peak_memory_stats(d)
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    out = fn()
+    for d in devs:
+        torch.cuda.synchronize(d)
+    sec = time.perf_counter() - t0
+    return out, sec, max(torch.cuda.max_memory_allocated(d)
+                         for d in devs) / 1e9
+
+
+def mesh_fit_phase(mesh, label, make, X, y, single, route, kind, tol,
+                   warm=1, ring_bytes=None):
+    """``make().fit(X, y)`` through the automatic route with ``mesh``
+    (then ``warm`` more, timed): it must call ``route`` (module, name) and
+    run the ``kind`` of work ('cont' or 'mixed' kernels, or 'gemm': int8
+    GEMMs and no Relief kernel), launch counts set to 0 before the first
+    fit and read after it; its scores agree with ``single`` (the fit on
+    one device) within ``tol`` (atol, rtol), its top_features_ alike.
+    Returns (first fit's seconds, warm fits' seconds, peak GB)."""
+    with MeshRoute(mesh, [route], ring_bytes) as mr:
+        rc.reset_launch_counts()
+        rd.reset_gemm_ops()
+        est, sec, peak = mesh_timed(mesh, lambda: make().fit(X, y))
+        launches, ops = dict(rc.launches), rd.gemm_ops
+        warm_s = [mesh_timed(mesh, lambda: make().fit(X, y))[1]
+                  for _ in range(warm)]
+    s = est.feature_importances_
+    err = float(np.abs(s - single).max())
+    top = np.argsort(single)[::-1][:len(est.top_features_)]
+    check(mr.calls == [route[1]] * (1 + warm),
+          f"{label}: routed to {mr.calls}, expected {route[1]}")
+    if kind == "gemm":
+        check(ops > 0 and not any(launches.values()),
+              f"{label}: int8 GEMMs ({ops} ops) and no Relief kernel "
+              f"({launches})")
+    else:
+        other = "mixed" if kind == "cont" else "cont"
+        check(launches[f"relief_pass1_{kind}"] > 0
+              and launches[f"relief_pass2_{kind}"] > 0
+              and launches[f"relief_pass1_{other}"] == 0
+              and launches[f"relief_pass2_{other}"] == 0,
+              f"{label}: launched the {kind} kernels {launches}")
+    check(s.shape == single.shape and np.isfinite(s).all(),
+          f"{label}: finite scores")
+    check(np.allclose(s, single, atol=tol[0], rtol=tol[1]),
+          f"{label}: max |scores - one device| {err} over atol {tol[0]} "
+          f"rtol {tol[1]}")
+    check(np.array_equal(est.top_features_, top),
+          f"{label}: top_features_ {est.top_features_} vs {top}")
+    print(f"{label}: {type(est).__name__} X {X.shape[0]}x{X.shape[1]} on "
+          f"{len(mesh)} shards ({mesh_name(mesh)}) via {route[1]}; fit "
+          f"{sec:.4f} s{''.join(f', warm {t:.4f} s' for t in warm_s)}; peak "
+          f"{peak:.2f} GB; launches {launches}; gemm_ops {ops:.4e}; max "
+          f"|scores - one device| {err:.3e}; top_features_ equal",
+          flush=True)
+    return sec, warm_s, peak
+
+
+def mesh_mixed_phase(dev, mesh, X, y, single_est, discrete_limit=200):
+    """``sharded_relief_scores`` called directly on mixed data (with its
+    150-state column: the MIXED kernels on every shard) against the
+    one-device fit of the same estimator settings."""
+    label = "mesh-mixed"
+    y_enc = np.unique(y, return_inverse=True)[1]
+    x_dev = torch.tensor(X, dtype=torch.float32, device=dev)
+    fa = analyze_features(x_dev, discrete_limit)
+    rc.reset_launch_counts()
+    s, sec, peak = mesh_timed(mesh, lambda: parallel.sharded_relief_scores(
+        x_dev, y_enc, fa.recip, fa.is_discrete, algo="multisurf",
+        devices=mesh))
+    launches = dict(rc.launches)
+    single = single_est.feature_importances_
+    err = float(np.abs(s - single).max())
+    top = np.argsort(s)[::-1][:len(single_est.top_features_)]
+    check(launches["relief_pass1_mixed"] > 0
+          and launches["relief_pass2_mixed"] > 0,
+          f"{label}: launched the MIXED kernels {launches}")
+    check(err <= fit_tol(single), f"{label}: max |scores - one device| "
+          f"{err}")
+    check(np.array_equal(top, single_est.top_features_),
+          f"{label}: top features {top} vs {single_est.top_features_}")
+    print(f"{label}: sharded_relief_scores X {X.shape[0]}x{X.shape[1]} "
+          f"({int(fa.is_discrete.sum())} discrete, {fa.n_states} states) on "
+          f"{len(mesh)} shards ({mesh_name(mesh)}): {sec:.4f} s; peak "
+          f"{peak:.2f} GB; launches {launches}; max |scores - one device| "
+          f"{err:.3e}; top features equal", flush=True)
+    return sec
+
+
+def mesh_mdr_phase(dev, mesh, X, y, planted, single):
+    """MDR(k=3, cv=5) through ShardedMDRFoldScorer (the fit's route with
+    the mesh), then that scorer's search alone: every fold's best rank and
+    key equal to the one-device search's (``single``: phase 19's result)."""
+    label = "mesh-mdr"
+    k = 3
+    before = dict(rc.launches)
+    with MeshRoute(mesh, [(mdr_mod, "ShardedMDRFoldScorer")]) as mr:
+        rd.reset_gemm_ops()
+        est, fit_s, peak = mesh_timed(mesh, lambda: MDR(k=k, cv=5).fit(X, y))
+        ops = rd.gemm_ops
+    check(mr.calls == ["ShardedMDRFoldScorer"],
+          f"{label}: the fit made {mr.calls}")
+    check(rc.launches == before and ops > 0,
+          f"{label}: int8 GEMMs ({ops} ops) and no Relief kernel")
+    check(est.best_interaction_ == planted and est.best_cvc_ == 5,
+          f"{label}: best {est.best_interaction_} CVC {est.best_cvc_}")
+    check(est._fold_best == single["est"]._fold_best,
+          f"{label}: fold winners {est._fold_best}")
+    _, w_case, w_ctrl = mdr_folds(est, X, y)
+    p = X.shape[1]
+    scorer = parallel.ShardedMDRFoldScorer(X, w_case, w_ctrl, k,
+                                           devices=mesh)
+    (_, keys, ranks), search_s, _ = mesh_timed(mesh, lambda: scorer.search(
+        p, math.comb(p, k), chunk=mdr_mod._COMBO_CHUNK))
+    check(np.array_equal(ranks, single["ranks"])
+          and np.array_equal(keys, single["keys"]),
+          f"{label}: ranks {ranks} keys {keys} vs one device's "
+          f"{single['ranks']} {single['keys']}")
+    del scorer
+    print(f"{label}: MDR(k=3, cv=5) X {X.shape[0]}x{p} on {len(mesh)} "
+          f"shards ({mesh_name(mesh)}) via ShardedMDRFoldScorer: fit "
+          f"{fit_s:.4f} s, search alone {search_s:.4f} s; gemm_ops "
+          f"{ops:.4e}; peak {peak:.3f} GB; best {est.best_interaction_} "
+          f"CVC 5/5; every fold's rank and key == one device's "
+          f"({ranks.tolist()})", flush=True)
+    return fit_s
+
+
+def mesh_stats_phase(dev, mesh, n=2000, p=5000):
+    """The MI matrix of mrmr's codes with its pair tiles sharded, equal bit
+    for bit to the one-device matrix, and through pairwise_stat_matrix's
+    route (symmetrised) equal to its one-device path."""
+    label = "mesh-stats"
+    rng = np.random.RandomState(14)
+    X = rng.randint(0, 5, (n, p))
+    y = rng.randint(0, 2, n)
+    X_enc = mrmr_mod._encode_union(X, y)[0]
+    rd.reset_gemm_ops()
+    got, sec, peak = mesh_timed(mesh, lambda: feature_shard
+                                .sharded_pairwise_stat_matrix(
+                                    X_enc, 5, "mi", devices=mesh))
+    ops = rd.gemm_ops
+    want, single_s, _ = mesh_timed([dev], lambda: ct.pairwise_stat_matrix(
+        X_enc, 5, "mi", device=dev, symmetric=False))
+    check(ops > 0 and np.array_equal(got, want),
+          f"{label}: sharded MI matrix == one device's, bit for bit")
+    with MeshRoute(mesh, [(feature_shard, "sharded_pairwise_stat_matrix")]
+                   ) as mr:
+        sym = ct.pairwise_stat_matrix(X_enc, 5, "mi", device=dev)
+    check(mr.calls == ["sharded_pairwise_stat_matrix"]
+          and np.array_equal(sym, ct.pairwise_stat_matrix(
+              X_enc, 5, "mi", device=dev)),
+          f"{label}: pairwise_stat_matrix's route == its one-device path")
+    print(f"{label}: sharded_pairwise_stat_matrix 'mi' on {n}x{p} codes, "
+          f"{len(mesh)} shards ({mesh_name(mesh)}): {sec:.4f} s (one "
+          f"device {single_s:.4f} s), gemm_ops {ops:.4e}, peak {peak:.2f} "
+          f"GB; equal bit for bit, and pairwise_stat_matrix's route too",
+          flush=True)
+    return sec
+
+
+def profiling_phase(dev, X, y, logdir):
+    """utils.profiling.timed_fit on X, one fit with its phases logged at
+    INFO, and one fit traced by utils.profiling.trace into ``logdir``."""
+    timing = profiling.timed_fit(lambda: MultiSURF(n_features_to_select=10),
+                                 X, y)
+    check(timing.seconds > 0 and timing.peak_rss_mb > 0,
+          "profiling: timed_fit measured the fit")
+    print(f"profiling: timed_fit MultiSURF X {X.shape[0]}x{X.shape[1]}: "
+          f"{timing}", flush=True)
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = logging.getLogger("fastselect_tpu_torch")
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    try:
+        MultiSURF(n_features_to_select=10).fit(X, y)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    msgs = [r.getMessage() for r in records]
+    check(any(m.startswith("relief_cuda.engine[multisurf]") for m in msgs),
+          f"profiling: phase records {msgs}")
+    print(f"profiling: phase records at INFO: {msgs}", flush=True)
+    with profiling.trace(str(logdir)) as prof:
+        t0 = time.perf_counter()
+        MultiSURF(n_features_to_select=10).fit(X, y)
+        wall = time.perf_counter() - t0
+    path = Path(logdir) / "trace.json"
+    check(path.is_file() and path.stat().st_size > 0,
+          f"profiling: trace written to {path}")
+    # kernel rows only: an aten op's self device time repeats its kernels'
+    busy = sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()
+               if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA) / 1e6
+    print(f"profiling: trace of one fit -> {path} "
+          f"({path.stat().st_size} bytes); kernels' device time {busy:.4f} "
+          f"s of the fit's {wall:.4f} s under the profiler", flush=True)
+    return timing
 
 
 # ---------------------------------------------------------------------------
@@ -1611,6 +1907,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    # the mesh phases: four shards on the first card, and every card
+    # where there is more than one
+    meshes = [[dev] * 4]
+    if torch.cuda.device_count() > 1:
+        meshes.append([torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())])
+    mesh_s = {}
 
     # 1. environment
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1665,11 +1968,13 @@ def main():
           "mixed: exactly the 40 integer columns are discrete")
     check(est.top_features_[0] == 0, "mixed: the planted column ranks first")
     X[:, 1] = np.arange(2000) % 150   # 150 states: past int8 state codes
-    est, fit_mf = fit_phase(dev, "mixed-fused", X, y,
-                            ("relief_pass1_mixed", "relief_pass2_mixed"),
-                            discrete_limit=200)
-    check(est.is_discrete_[:40].all() and not est.is_discrete_[40:].any(),
+    est_mf, fit_mf = fit_phase(dev, "mixed-fused", X, y,
+                               ("relief_pass1_mixed", "relief_pass2_mixed"),
+                               discrete_limit=200)
+    check(est_mf.is_discrete_[:40].all()
+          and not est_mf.is_discrete_[40:].any(),
           "mixed-fused: the 40 integer columns are discrete")
+    X_mf, y_mf = X, y
     X, y = make_classification(n_samples=150000, n_features=100,
                                n_informative=10, random_state=9)
     X = quantized(X, np.arange(40)).astype(np.float32)
@@ -1682,6 +1987,22 @@ def main():
                      for k in rc.launches}
     for name in KERNELS:
         check(main_launches[name] > 0, f"{name} launched on the main path")
+
+    # 21. the mesh: large-n through the automatic route (the continuous
+    # kernels on every shard), the 150-state mixed input called directly
+    # (the MIXED kernels)
+    t0 = time.perf_counter()
+    fit_tol_n = (fit_tol(large_n.feature_importances_), 0.0)
+    for mesh in meshes:
+        mesh_s["mesh-large-n"] = mesh_fit_phase(
+            mesh, "mesh-large-n", lambda: MultiSURF(n_features_to_select=10),
+            X_n, y_n, large_n.feature_importances_,
+            (psh, "sharded_relief_scores"), "cont", fit_tol_n)
+        mesh_s["mesh-mixed"] = mesh_mixed_phase(dev, mesh, X_mf, y_mf,
+                                                est_mf)
+    del X_mf
+    print(f"mesh-large-n and mesh-mixed: phase "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # 7. the SNP headline on the all-discrete engine
     t0 = time.perf_counter()
@@ -1705,6 +2026,15 @@ def main():
     head_est.top_features_ = np.argsort(head["scores"])[::-1][:10]
     dev_int8_s = device_fit_phase(dev, "device-fit int8", X, y, head_est,
                                   min(head["warm_s"]))
+    # 21. the mesh: p >= 4n routes the genotypes to the feature shard
+    t0 = time.perf_counter()
+    for mesh in meshes:
+        mesh_s["mesh-snp"] = mesh_fit_phase(
+            mesh, "mesh-snp", lambda: MultiSURF(n_features_to_select=10),
+            X, y, head["scores"],
+            (feature_shard, "feature_sharded_relief_discrete_scores"),
+            "gemm", DISC_TOL, warm=0)
+    print(f"mesh-snp: phase {time.perf_counter() - t0:.2f} s", flush=True)
     del X
 
     # 8. the other tiers
@@ -1713,9 +2043,29 @@ def main():
                    ReliefF(n_features_to_select=3, n_neighbors=5),
                    X, y, "v1")
     X, y = planted_genotypes(2, 30000, 2048, 2)
-    discrete_phase(dev, "tier-v2",
-                   MultiSURF(n_features_to_select=3, use_star=True),
-                   X, y, "v2")
+    tier_v2 = discrete_phase(dev, "tier-v2",
+                             MultiSURF(n_features_to_select=3, use_star=True),
+                             X, y, "v2")
+    # 21. the mesh: the sample shard with class-sorted blocks dealt to the
+    # shards, then the ring (_RING_BYTES below the codes' bytes) with its
+    # skip table
+    t0 = time.perf_counter()
+    make_v2 = lambda: MultiSURF(n_features_to_select=3,  # noqa: E731
+                                use_star=True)
+    for mesh in meshes:
+        mesh_s["mesh-v2"] = mesh_fit_phase(
+            mesh, "mesh-v2", make_v2, X, y, tier_v2["scores"],
+            (psh, "_sharded_discrete_v2"), "gemm", DISC_TOL, warm=0)
+        # the ring's rules run on its shards' rows, not the engine's
+        # blocks: float32 row statistics over other shapes may move a
+        # threshold by an ulp, so it is held to the referees' FIT_ATOL
+        mesh_s["mesh-ring"] = mesh_fit_phase(
+            mesh, "mesh-ring", make_v2, X, y, tier_v2["scores"],
+            (parallel.ring, "_ring_skip_table"), "gemm",
+            (fit_tol(tier_v2["scores"]), 0.0), warm=0,
+            ring_bytes=X.size - 1)
+    print(f"mesh-v2 and mesh-ring: phase {time.perf_counter() - t0:.2f} s",
+          flush=True)
     X, y = planted_genotypes(3, 8192, 16384, 2)
     discrete_phase(dev, "tier-v2-sym", SURF(n_features_to_select=3),
                    X.astype(np.float64), y, "v2-sym")
@@ -1766,7 +2116,7 @@ def main():
     del X
 
     # 13. chi2
-    chi2_ms, chi2_host_s = chi2_phase(dev)
+    chi2_ms, chi2_host_s = chi2_phase(dev, meshes=meshes)
 
     # 14-17. mRMR and CFS on the contingency tables' int8 GEMMs
     selectors = {label: phase(dev) for label, phase in (
@@ -1777,6 +2127,22 @@ def main():
     mdr, mdr_large, mdr_sec = mdr_phase(dev)
     mdr_k3, k3_sec = mdr_k3_phase(dev)
     mdr_k4, k4_sec = mdr_k4_phase(dev)
+
+    # 21. the mesh: MDR's combos sharded, the MI matrix's pair tiles
+    t0 = time.perf_counter()
+    for mesh in meshes:
+        mesh_s["mesh-mdr"] = mesh_mdr_phase(
+            dev, mesh, mdr_k3["X"], mdr_k3["y"], mdr_k3["planted"], mdr_k3)
+        mesh_s["mesh-stats"] = mesh_stats_phase(dev, mesh)
+    print(f"mesh-mdr and mesh-stats: phase {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # 22. profiling: timed_fit, phase records and a trace (under build/)
+    t0 = time.perf_counter()
+    fit_timing = profiling_phase(dev, X_n, y_n,
+                                 Path(__file__).resolve().parent / "build"
+                                 / "trace-large-n")
+    print(f"profiling: phase {time.perf_counter() - t0:.2f} s", flush=True)
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1804,7 +2170,11 @@ def main():
           f"{mdr['warm_s'][0]:.4f} s, mdr-large-n {mdr_large['first_s']:.4f} "
           f"s (phase {mdr_sec:.2f} s); mdr-k3 first {mdr_k3['first_s']:.4f} "
           f"s, warm {mdr_k3['warm_s'][0]:.4f} s (phase {k3_sec:.2f} s); "
-          f"mdr-k4 {mdr_k4['first_s']:.4f} s (phase {k4_sec:.2f} s)"
+          f"mdr-k4 {mdr_k4['first_s']:.4f} s (phase {k4_sec:.2f} s); "
+          + ", ".join(f"{k} {v if isinstance(v, float) else v[0]:.4f} s"
+                      for k, v in mesh_s.items())
+          + f" (first fits on {len(meshes[-1])} shards); timed_fit large-n "
+          f"{fit_timing.seconds:.4f} s"
           + f" on {smi}; chip_smoke {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps(summary), flush=True)

@@ -18,7 +18,9 @@ from math import comb
 
 import numpy as np
 
+from ..ops import relief
 from ..ops.mdr_op import MDRFoldScorer, unrank_combos
+from ..parallel.mdr_shard import ShardedMDRFoldScorer
 from ..utils.backend import default_device, resolve_backend
 from ..utils.sklearn_compat import (BaseEstimator, ClassifierMixin,
                                     StratifiedKFold, check_array,
@@ -72,8 +74,13 @@ class MDR(BaseEstimator, ClassifierMixin):
         self.verbose = verbose
 
     def _make_fold_scorer(self, X, w_case, w_ctrl, device):
-        """All-folds combo scorer on one device (the sharded scorer waits
-        for the multi-GPU port)."""
+        """All-folds combo scorer: the combos sharded over every visible
+        GPU when there is more than one (``ops/relief.py:_mesh_devices``,
+        off under ``FS_NO_AUTO_SHARD=1``), else on the fit's device."""
+        devs = relief._mesh_devices(device)
+        if len(devs) > 1:
+            return ShardedMDRFoldScorer(X, w_case, w_ctrl, self.k,
+                                        devices=devs)
         return MDRFoldScorer(X, w_case, w_ctrl, self.k, device=device)
 
     def _create_lookup_table(self, X, y, interaction_indices):

@@ -102,4 +102,5 @@ class ReliefF(BaseReliefSelector):
             X, y_enc, analysis.recip, analysis.is_discrete,
             algo="relieff", n_neighbors=self.n_neighbors,
             class_probs=class_probs, device=self._device(),
-            codes=analysis.codes, n_states=analysis.n_states)
+            codes=analysis.codes, n_states=analysis.n_states,
+            from_host=self._device_ is None)

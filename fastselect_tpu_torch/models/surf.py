@@ -70,7 +70,8 @@ class SURF(BaseReliefSelector):
         scores = relief_scores(
             X, y_enc, analysis.recip, analysis.is_discrete,
             algo="surf", use_star=self.use_star, device=self._device(),
-            codes=analysis.codes, n_states=analysis.n_states)
+            codes=analysis.codes, n_states=analysis.n_states,
+            from_host=self._device_ is None)
         if self.verbose:
             print("Feature scoring completed.")
         return scores

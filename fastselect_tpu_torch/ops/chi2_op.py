@@ -27,6 +27,11 @@ def chi2_stats(x: torch.Tensor, y_mapped, n_classes: int) -> np.ndarray:
     """Chi2 statistics (float64 numpy) of ``x`` on its own device; y_mapped
     holds class codes 0..n_classes-1.  The product runs in float32 with
     TF32 off, whatever the process's setting."""
+    return chi2_device(x, y_mapped, n_classes).cpu().numpy()
+
+
+def chi2_device(x: torch.Tensor, y_mapped, n_classes: int) -> torch.Tensor:
+    """:func:`chi2_stats` as a float64 tensor on x's device."""
     x = x.to(torch.float32)
     y = torch.as_tensor(np.asarray(y_mapped, np.int64), device=x.device)
     onehot = torch.nn.functional.one_hot(y, n_classes).to(torch.float32)
@@ -43,8 +48,7 @@ def chi2_stats(x: torch.Tensor, y_mapped, n_classes: int) -> np.ndarray:
     pos = expected > 1e-12
     term = torch.where(pos, resid * resid / torch.where(pos, expected, 1.0),
                        0.0)
-    stats = torch.where(feature_counts == 0, 0.0, term.sum(dim=0))
-    return stats.cpu().numpy()
+    return torch.where(feature_counts == 0, 0.0, term.sum(dim=0))
 
 
 def chi2_stats_exact(x: np.ndarray, y_mapped: np.ndarray,

@@ -35,6 +35,7 @@ import math
 import numpy as np
 import torch
 
+from . import relief as _relief
 from .relief_discrete import _dot_t, _round_up
 
 _EPS = 1e-12
@@ -354,23 +355,29 @@ def pair_tile(n: int, p: int, s: int) -> int:
 
 def _pair_blocks(xt: torch.Tensor, n: int, s: int, stat: str,
                  log_base: float, *, upper: bool = True,
-                 tile: int | None = None) -> torch.Tensor:
+                 tile: int | None = None, devices=None) -> torch.Tensor:
     """(p, p) float32 statistic of the feature pairs of the staged codes,
     on their device, one GEMM a pair of tiles: the blocks on and above the
     diagonal (``upper``), else all of them.  Every entry comes from its
-    own table, so the tile size changes no entry."""
+    own table, so the tile size changes no entry.  A mesh (``devices``, a
+    sequence of devices) deals the tile rows round-robin over its devices,
+    each holding all the codes; a block is computed there as it would be
+    on xt's device."""
     p = xt.shape[0]
     tile = tile or pair_tile(n, p, s)
     nt = -(-p // tile)
+    mesh = tuple(devices or (xt.device,))
+    codes = {d: xt.to(d, non_blocking=True) for d in dict.fromkeys(mesh)}
 
-    def operand(t):
-        return _PairOperand(xt[t * tile:(t + 1) * tile], s, tile)
+    def operand(t, d):
+        return _PairOperand(codes[d][t * tile:(t + 1) * tile], s, tile)
 
     R = torch.zeros((p, p), dtype=torch.float32, device=xt.device)
     for ti in range(nt):
-        a = operand(ti)
+        dev = mesh[ti % len(mesh)]
+        a = operand(ti, dev)
         for tj in range(ti if upper else 0, nt):
-            b = a if tj == ti else operand(tj)
+            b = a if tj == ti else operand(tj, dev)
             blk = tables_stat(_pair_block(a, b, n, s), n, stat, log_base)
             i0, j0 = ti * tile, tj * tile
             R[i0:i0 + a.f, j0:j0 + b.f] = blk[:a.f, :b.f]
@@ -412,7 +419,21 @@ def pairwise_stat_matrix(X_enc, s: int, stat: str, device=None,
                          symmetric: bool = True) -> np.ndarray:
     """Full (p, p) pairwise statistic ('mi' or 'su') over feature pairs as
     host float64, the diagonal holding each feature's statistic against
-    itself (``symmetric``: the upper triangle mirrored)."""
+    itself (``symmetric``: the upper triangle mirrored).
+
+    From 1,024 features, with more than one device in the mesh of a fit on
+    ``device`` (``relief._mesh_devices``), the pair tiles are sharded over
+    it (``parallel.feature_shard.sharded_pairwise_stat_matrix``): the same
+    entries, bit for bit."""
+    devs = _relief._mesh_devices(device) if X_enc.shape[1] >= 1024 else []
+    if len(devs) > 1:
+        from ..parallel.feature_shard import sharded_pairwise_stat_matrix
+        out = sharded_pairwise_stat_matrix(X_enc, s, stat, devices=devs,
+                                           log_base=log_base)
+        if symmetric:
+            upper = np.triu(out, 1)
+            out = upper + upper.T + np.diag(np.diag(out))
+        return out
     xt = stage_codes(X_enc, s, device)
     R = _pair_blocks(xt, X_enc.shape[0], s, stat, log_base, upper=symmetric)
     if symmetric:
@@ -439,7 +460,12 @@ class StagedColumnStats:
     At s >= 3 a column contracts states 1.. of both sides against the
     staged per-feature marginals and recovers state 0 exactly, so its
     tables, and with them its entries, are those of the full one-hot
-    builders."""
+    builders.
+
+    With more than one device in the mesh of a fit on ``device``
+    (``relief._mesh_devices``) the feature tiles are dealt round-robin over
+    it: each tile's codes are staged on its device once, and its tables
+    are computed there and gathered on ``device``."""
 
     def __init__(self, X_enc, s: int, device=None,
                  log_base: float = math.log(2.0)):
@@ -451,32 +477,40 @@ class StagedColumnStats:
         self.drop = self.s >= 3
         width = self.s - 1 if self.drop else self.s
         self.tile = _vector_tile(self.xt.shape[1], self.p, width)
-        self.marg = None
-        if self.drop:
-            self.marg = torch.empty((self.p, width), dtype=torch.int32,
-                                    device=self.device)
-            for t0 in range(0, self.p, self.tile):
-                f = min(self.tile, self.p - t0)
-                self.marg[t0:t0 + f] = _marginals(_onehot_rows(
-                    self.xt[t0:t0 + f], width, first=1), f, width)
+        mesh = _relief._mesh_devices(self.device)
+        mesh = mesh if len(mesh) > 1 else [self.device]
+        # (first feature, features, staged codes, marginals of states 1..)
+        self._tiles = []
+        for i, t0 in enumerate(range(0, self.p, self.tile)):
+            f = min(self.tile, self.p - t0)
+            xt = self.xt[t0:t0 + f].to(mesh[i % len(mesh)],
+                                       non_blocking=True)
+            marg = (_marginals(_onehot_rows(xt, width, first=1), f, width)
+                    if self.drop else None)
+            self._tiles.append((t0, f, xt, marg))
 
     def tables_vs(self, v_enc, s_v: int) -> torch.Tensor:
         """(p, s, s_v) int32 tables of every feature against 1-D codes v
-        (host array or tensor)."""
+        (host array or tensor): one GEMM a feature tile, on its device.
+        At s >= 3 states 1.. of both sides are contracted and state 0 is
+        recovered from the staged marginals."""
+        first = int(self.drop)
+        sxm, svm = self.s - first, s_v - first
         v = _stage_vector(v_enc, self.xt.shape[1], self.device)
-        if not self.drop:
-            return _vs_tables(self.xt, v, self.s, s_v)
-        sxm, svm = self.s - 1, s_v - 1
-        b = _onehot_rows(v[None, :], svm, first=1, rows=_b_rows(svm))
-        mv = _marginals(b, 1, svm)
+        rhs = {}   # device -> (v's one-hot, its marginals)
         out = torch.empty((self.p, self.s, s_v), dtype=torch.int32,
                           device=self.device)
-        for t0 in range(0, self.p, self.tile):
-            f = min(self.tile, self.p - t0)
-            a = _onehot_rows(self.xt[t0:t0 + f], sxm, first=1,
+        for t0, f, xt, marg in self._tiles:
+            if xt.device not in rhs:
+                b = _onehot_rows(v.to(xt.device, non_blocking=True)[None, :],
+                                 svm, first=first, rows=_b_rows(svm))
+                rhs[xt.device] = b, _marginals(b, 1, svm)
+            b, mv = rhs[xt.device]
+            a = _onehot_rows(xt, sxm, first=first,
                              rows=max(f * sxm, _MIN_ROWS))
             sub = _dot_t(a, b)[:f * sxm, :svm].view(f, sxm, svm)
-            out[t0:t0 + f] = _assemble(sub, self.marg[t0:t0 + f], mv, self.n)
+            tables = _assemble(sub, marg, mv, self.n) if self.drop else sub
+            out[t0:t0 + f] = tables.to(self.device, non_blocking=True)
         return out
 
     def stats_vs(self, v_enc, s_v: int, stat: str) -> np.ndarray:

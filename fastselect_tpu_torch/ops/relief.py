@@ -28,6 +28,8 @@ JAX engines: promoting them would move thresholds and flip near masks.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -165,6 +167,89 @@ def pair_weight_rules(D, yi, vi, iid, y_flat, valid_flat, n_real,
     raise ValueError(f"unknown Relief algorithm {algo!r}")
 
 
+def relief_engine_core(x_f, yv_f, valid_f, row0, x_a, yv_a, valid_a,
+                       recip, disc, n_real, class_probs, *, algo, use_star,
+                       k, nb, n_disc=0, pass1=None, pass2=None):
+    """Unnormalised scores (p_pad,) float32 contributed by the focal rows
+    ``x_f`` against all rows ``x_a``, on their device.
+
+    ``row0`` is the global row id of x_f's first row: the sharded layer
+    passes each shard's contiguous focal rows with their offset, a single
+    device all rows with 0.  Every block of ``nb`` focal rows runs pass 1
+    against all rows, the weight rules with its global row ids, then pass
+    2; block scores are added in block order.  The first ``n_disc``
+    columns (a multiple of 4) are the discrete ones.  ``pass1`` and
+    ``pass2`` default to the kernel wrappers of ``relief_cuda.py``
+    (:func:`~.relief_cuda.dist_matrix`, :func:`~.relief_cuda.accumulate`).
+    Counterpart of JAX's ``relief_engine_core``.
+    """
+    if pass1 is None or pass2 is None:
+        from .relief_cuda import accumulate, dist_matrix
+        pass1, pass2 = pass1 or dist_matrix, pass2 or accumulate
+    mixed = n_disc > 0
+    dev = x_a.device
+    scores = torch.zeros(x_a.shape[1], dtype=torch.float32, device=dev)
+    for b0 in range(0, x_f.shape[0], nb):
+        xi = x_f[b0:b0 + nb]
+        iid = torch.arange(row0 + b0, row0 + b0 + xi.shape[0], device=dev)
+        W = _sum_rules(pair_weight_rules(
+            pass1(x_a, recip, disc, xi=xi, mixed=mixed),
+            yv_f[b0:b0 + nb], valid_f[b0:b0 + nb], iid, yv_a, valid_a,
+            n_real, class_probs, algo=algo, use_star=use_star, k=k))
+        scores += pass2(x_a, W, recip, disc, xi=xi, mixed=mixed,
+                        n_disc=n_disc)
+    return scores
+
+
+# Automatic multi-device routing, at the JAX package's values: below this
+# element count a fit stays on one device; a code matrix of more bytes
+# than _RING_BYTES takes the ring layout (X never replicated).  Both were
+# sized for a 16 GB TPU chip and wait for an H100 measurement.
+_AUTO_SHARD_MIN_ELEMS = 1 << 21
+_RING_BYTES = 4 << 30
+
+
+def _mesh_devices(device) -> list:
+    """The mesh of the automatic multi-device routes for a fit on
+    ``device``: every visible CUDA device when ``device`` is a CUDA device,
+    else none; none under ``FS_NO_AUTO_SHARD=1``."""
+    if device is None or torch.device(device).type != "cuda":
+        return []
+    if os.environ.get("FS_NO_AUTO_SHARD") == "1":
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _sharded_dispatch(x, y, recip, is_discrete, devs, *, algo, use_star,
+                      n_neighbors, class_probs, codes, n_states):
+    """Pick a sharded layout from (n, p): all-discrete data takes the
+    sample shard (codes on every device), the feature shard when p >> n
+    (the GWAS layout), or the ring when the codes are too large to hold
+    on every device; any other data takes the sample shard of the fused
+    engine."""
+    n, p = (x if codes is None else codes).shape
+    kw = dict(algo=algo, use_star=use_star, n_neighbors=n_neighbors,
+              class_probs=class_probs, devices=devs)
+    if relief_engine(n, is_discrete, n_states) != "discrete":
+        from ..parallel.sharded import sharded_relief_scores
+        return sharded_relief_scores(x, y, recip, is_discrete, **kw)
+    if codes is None:
+        from ..utils.preprocessing import encode_columns
+        codes, n_unique, _ = encode_columns(torch.as_tensor(x).to(
+            devs[0], torch.float32))
+        n_states = int(n_unique.max())
+    kw["n_states"] = n_states or None
+    if n * p > _RING_BYTES:
+        from ..parallel.ring import ring_relief_discrete_scores
+        return ring_relief_discrete_scores(codes, y, **kw)
+    if p >= 4 * n and p >= 4096:
+        from ..parallel.feature_shard import (
+            feature_sharded_relief_discrete_scores)
+        return feature_sharded_relief_discrete_scores(codes, y, **kw)
+    from ..parallel.sharded import sharded_relief_discrete_scores
+    return sharded_relief_discrete_scores(codes, y, **kw)
+
+
 def relief_engine(n: int, is_discrete, n_states: int = 0) -> str:
     """The engine :func:`relief_scores` takes: ``'discrete'``, ``'hybrid'``
     or ``'fused'``, from the shape and the state count alone.
@@ -195,8 +280,15 @@ def relief_scores(
     device: torch.device | None = None,
     codes=None,
     n_states: int = 0,
+    from_host: bool | None = None,
 ) -> np.ndarray:
     """Relief-family importance scores (already divided by n_samples).
+
+    Data that came from the host (``from_host``; by default, X or codes
+    not a tensor) with at least ``_AUTO_SHARD_MIN_ELEMS`` values and at
+    least 16 samples a device takes a sharded layout of ``parallel/`` when
+    :func:`_mesh_devices` finds more than one device: the estimators'
+    ``fit`` on a host array does, a fit on a tensor never does.
 
     All-discrete data goes to the int8 one-hot GEMM engine of
     ``relief_discrete.py``, scored from ``codes`` when given (X may then be
@@ -207,7 +299,17 @@ def relief_scores(
     fused engine of ``relief_cuda.py``.  The engines run the hand-written
     kernels on a CUDA device and their plain PyTorch versions on the CPU.
     """
-    n = (x if codes is None else codes).shape[0]
+    data = x if codes is None else codes
+    n, p = data.shape
+    if from_host is None:
+        from_host = not isinstance(data, torch.Tensor)
+    if from_host and n * p >= _AUTO_SHARD_MIN_ELEMS:
+        devs = _mesh_devices(device)
+        if len(devs) > 1 and n >= 16 * len(devs):
+            return _sharded_dispatch(
+                x, y, recip, is_discrete, devs, algo=algo, use_star=use_star,
+                n_neighbors=n_neighbors, class_probs=class_probs,
+                codes=codes, n_states=n_states)
     engine = relief_engine(n, is_discrete, n_states)
     kw = dict(algo=algo, use_star=use_star, n_neighbors=n_neighbors,
               class_probs=class_probs, device=device)

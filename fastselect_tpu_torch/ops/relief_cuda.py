@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from .. import _build
-from .relief import _sum_rules, pair_weight_rules
+from ..utils.logging import phase
+from .relief import relief_engine_core
 
 # Samples pad to 64 rows, which meets the hybrid engine's int8 GEMMs (more
 # than 16 rows, multiples of 8; the kernels mask ragged rows themselves),
@@ -339,16 +340,19 @@ def _round_up(v: int, m: int) -> int:
 
 
 def _focal_block_rows(n_pad: int, ti: int, budget_bytes: int,
-                      bytes_per_pair: int = _BYTES_PER_PAIR) -> int:
-    """Focal block rows nb: the largest multiple of ti that divides n_pad
-    (a multiple of ti) and whose pair arrays fit ``budget_bytes``.
+                      bytes_per_pair: int = _BYTES_PER_PAIR,
+                      n_focal: int | None = None) -> int:
+    """Focal block rows nb: the largest multiple of ti that divides the
+    focal rows ``n_focal`` (default n_pad; a multiple of ti) and whose
+    pair arrays against all n_pad samples fit ``budget_bytes``.
 
     The JAX engine's rule (``relief_pallas._focal_block_rows``) with the
     budget taken from the device.  That rule minimises padded work first,
-    so it only ever picks block sizes that divide the sample axis."""
-    if n_pad * n_pad * bytes_per_pair <= budget_bytes:
-        return n_pad
-    m = n_pad // ti
+    so it only ever picks block sizes that divide the focal axis."""
+    n_focal = n_pad if n_focal is None else n_focal
+    if n_focal * n_pad * bytes_per_pair <= budget_bytes:
+        return n_focal
+    m = n_focal // ti
     cap = max(1, budget_bytes // (bytes_per_pair * n_pad * ti))
     return ti * max(d for d in range(1, min(cap, m) + 1) if m % d == 0)
 
@@ -400,25 +404,51 @@ def feature_positions(is_discrete: np.ndarray) -> np.ndarray:
     return np.where(disc, np.cumsum(disc) - 1, d_run + np.cumsum(~disc) - 1)
 
 
-def _fused_engine(xp, yv, valid, recip, disc, n_real, class_probs, *,
-                  algo, use_star, k, nb, n_disc, pass1, pass2):
-    """Unnormalised scores (p_pad,): every focal block of nb rows runs
-    pass 1 against all samples, the weight rules with its global row ids,
-    then pass 2; block scores are added in block order.  The first n_disc
-    columns (a multiple of 4) are the discrete ones."""
-    n_pad = xp.shape[0]
-    mixed = n_disc > 0
-    scores = torch.zeros(xp.shape[1], dtype=torch.float32, device=xp.device)
-    for b0 in range(0, n_pad, nb):
-        xi = xp[b0:b0 + nb]
-        iid = torch.arange(b0, b0 + nb, device=xp.device)
-        W = _sum_rules(pair_weight_rules(
-            pass1(xp, recip, disc, xi=xi, mixed=mixed),
-            yv[b0:b0 + nb], valid[b0:b0 + nb], iid, yv, valid, n_real,
-            class_probs, algo=algo, use_star=use_star, k=k))
-        scores += pass2(xp, W, recip, disc, xi=xi, mixed=mixed,
-                        n_disc=n_disc)
-    return scores
+class FusedLayout(NamedTuple):
+    """The fused engine's operands on one device (:func:`stage_fused`)."""
+    xp: torch.Tensor           # (n_pad, p_pad) float32, columns by kind
+    yv: torch.Tensor           # (n_pad,) int64 labels, -1 past n
+    valid: torch.Tensor        # (n_pad,) float32, 0 past n
+    recip: torch.Tensor        # (p_pad,) float32
+    disc: torch.Tensor         # (p_pad,) float32, 1 on the discrete run
+    class_probs: torch.Tensor  # (C,) float32
+    n_real: torch.Tensor       # float32 scalar, n
+    pos: torch.Tensor          # (p,) padded column of each input column
+    n_disc: int                # the padded discrete run
+
+    def to(self, device: torch.device) -> "FusedLayout":
+        """The same operands on ``device`` (no copy on their own)."""
+        return FusedLayout(*(t.to(device, non_blocking=True)
+                             if isinstance(t, torch.Tensor) else t
+                             for t in self))
+
+
+def stage_fused(x, y, recip, disc, class_probs, device, n_pad: int,
+                p_pad: int) -> FusedLayout:
+    """X (a tensor) and its labels, ranges and kinds (``disc`` a numpy bool
+    array) padded to (n_pad, p_pad) in the layout of
+    :func:`feature_positions`, on ``device``."""
+    n = x.shape[0]
+    d_run = _round_up(int(disc.sum()), TILE_FEATURES)   # padded run
+    pos = torch.as_tensor(feature_positions(disc), device=device)
+    xp = torch.zeros((n_pad, p_pad), dtype=torch.float32, device=device)
+    xp[:n].index_copy_(1, pos, x.to(device=device, dtype=torch.float32))
+    yv = torch.full((n_pad,), -1, dtype=torch.int64, device=device)
+    yv[:n] = torch.as_tensor(np.asarray(y, np.int64), device=device)
+    valid = torch.zeros(n_pad, dtype=torch.float32, device=device)
+    valid[:n] = 1.0
+    recip2 = torch.zeros(p_pad, dtype=torch.float32, device=device)
+    recip2.index_copy_(0, pos, torch.as_tensor(recip).to(
+        device=device, dtype=torch.float32))
+    # the discrete run's zero pad columns are discrete too: they never
+    # differ, and keep every float4 group of the run one kind
+    disc2 = torch.zeros(p_pad, dtype=torch.float32, device=device)
+    disc2[:d_run] = 1.0
+    if class_probs is None:
+        class_probs = np.zeros((1,), np.float32)
+    cp = torch.as_tensor(np.asarray(class_probs, np.float32), device=device)
+    n_real = torch.tensor(n, dtype=torch.float32, device=device)
+    return FusedLayout(xp, yv, valid, recip2, disc2, cp, n_real, pos, d_run)
 
 
 def relief_fused_scores(
@@ -448,30 +478,12 @@ def relief_fused_scores(
     n, p = x.shape
     disc = np.asarray(torch.as_tensor(is_discrete).cpu(), bool)
     plan = block_plan(n, p, device, algo, n_disc=int(disc.sum()))
-    d_run = _round_up(int(disc.sum()), TILE_FEATURES)   # padded run
-    pos = torch.as_tensor(feature_positions(disc), device=device)
-
-    xp = torch.zeros((plan.n_pad, plan.p_pad), dtype=torch.float32,
-                     device=device)
-    xp[:n].index_copy_(1, pos, x.to(device=device, dtype=torch.float32))
-    yv = torch.full((plan.n_pad,), -1, dtype=torch.int64, device=device)
-    yv[:n] = torch.as_tensor(np.asarray(y, np.int64), device=device)
-    valid = torch.zeros(plan.n_pad, dtype=torch.float32, device=device)
-    valid[:n] = 1.0
-    recip2 = torch.zeros(plan.p_pad, dtype=torch.float32, device=device)
-    recip2.index_copy_(0, pos, torch.as_tensor(recip).to(
-        device=device, dtype=torch.float32))
-    # the discrete run's zero pad columns are discrete too: they never
-    # differ, and keep every float4 group of the run one kind
-    disc2 = torch.zeros(plan.p_pad, dtype=torch.float32, device=device)
-    disc2[:d_run] = 1.0
-    if class_probs is None:
-        class_probs = np.zeros((1,), np.float32)
-    cp = torch.as_tensor(np.asarray(class_probs, np.float32), device=device)
-    n_real = torch.tensor(n, dtype=torch.float32, device=device)
-
-    scores = _fused_engine(
-        xp, yv, valid, recip2, disc2, n_real, cp,
-        algo=algo, use_star=use_star, k=int(n_neighbors), nb=plan.nb,
-        n_disc=d_run, pass1=_pass1, pass2=_pass2)
-    return (scores.index_select(0, pos) / n_real).cpu().numpy()
+    fl = stage_fused(x, y, recip, disc, class_probs, device, plan.n_pad,
+                     plan.p_pad)
+    with phase(f"relief_cuda.engine[{algo}]", work=float(n) * n * p):
+        scores = relief_engine_core(
+            fl.xp, fl.yv, fl.valid, 0, fl.xp, fl.yv, fl.valid, fl.recip,
+            fl.disc, fl.n_real, fl.class_probs, algo=algo, use_star=use_star,
+            k=int(n_neighbors), nb=plan.nb, n_disc=fl.n_disc, pass1=_pass1,
+            pass2=_pass2)
+        return (scores.index_select(0, fl.pos) / fl.n_real).cpu().numpy()

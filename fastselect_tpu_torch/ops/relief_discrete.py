@@ -43,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.logging import phase
 from ..utils.preprocessing import MAX_STATES, encode_columns
 from .relief import pair_weight_rules
 
@@ -640,21 +641,16 @@ def relief_discrete_scores(
     encoded on ``device`` (default: X's own).  ``ti``/``ft`` override the
     focal-block and feature-tile sizes.
     """
+    n, p = (x if codes is None else codes).shape
     if codes is None:
-        codes, n_unique, _ = encode_columns(_float_tensor(x, device))
+        with phase("relief_discrete.encode", work=n * p):
+            codes, n_unique, _ = encode_columns(_float_tensor(x, device))
         n_states = int(n_unique.max())
-    else:
-        if not isinstance(codes, torch.Tensor):
+    elif not isinstance(codes, torch.Tensor):
+        with phase("relief_discrete.h2d", work=n * p):
             codes = torch.as_tensor(np.asarray(codes, np.int8), device=device)
-        codes = codes.to(torch.int8)
-        if n_states is None:
-            n_states = int(codes.max()) + 1
-    n_states = max(int(n_states), 1)
-    if n_states > MAX_STATES:
-        raise ValueError(f"{n_states} states per column: int8 state codes "
-                         f"hold at most {MAX_STATES}")
+    codes, n_states = int8_codes(codes, n_states)
     dev = codes.device
-    n, p = codes.shape
     y = np.asarray(y)
 
     layout, ti, ft = _tiles_and_layout(n, p, n_states, y, algo,
@@ -664,15 +660,35 @@ def relief_discrete_scores(
     if layout is not None:
         # class-sorted v2: segment-restricted pass 2 (+ symmetric pass 1
         # when the precomputed one-hot fits)
-        scores = _run_v2(codes, y, layout, n, p, n_states, class_probs,
-                         algo=algo, use_star=use_star, k=int(n_neighbors),
-                         ti=ti, ft=ft)
-    else:
-        cpad, yv, valid, _ = pack_discrete(codes, y, n_states, ti=ti, ft=ft)
+        with phase(f"relief_discrete.engine_v2[{algo}]",
+                   work=float(n) * n * p):
+            scores = _run_v2(codes, y, layout, n, p, n_states, class_probs,
+                             algo=algo, use_star=use_star,
+                             k=int(n_neighbors), ti=ti, ft=ft)
+            return (scores[:p].to(torch.float32) / float(n)).cpu().numpy()
+    cpad, yv, valid, _ = pack_discrete(codes, y, n_states, ti=ti, ft=ft)
+    with phase(f"relief_discrete.engine[{algo}]", work=float(n) * n * p):
         scores = relief_discrete_core(
             cpad, yv, valid, 0, cpad, yv, valid,
             torch.tensor(float(n), dtype=torch.float32, device=dev),
             torch.as_tensor(np.asarray(class_probs, np.float32), device=dev),
             algo=algo, use_star=use_star, k=int(n_neighbors), ti=ti, ft=ft,
             n_states=n_states)
-    return (scores[:p].to(torch.float32) / float(n)).cpu().numpy()
+        return (scores[:p].to(torch.float32) / float(n)).cpu().numpy()
+
+
+def int8_codes(codes, n_states: int | None = None, device=None):
+    """``(codes, n_states)``: state codes (array or tensor) as an int8
+    tensor on ``device`` (default: a tensor's own, else the CPU), with
+    n_states (default: the largest code + 1); more than ``MAX_STATES``
+    raises."""
+    if not isinstance(codes, torch.Tensor):
+        codes = torch.as_tensor(np.asarray(codes, np.int8))
+    codes = codes.to(device=device or codes.device, dtype=torch.int8)
+    if n_states is None:
+        n_states = int(codes.max()) + 1
+    n_states = max(int(n_states), 1)
+    if n_states > MAX_STATES:
+        raise ValueError(f"{n_states} states per column: int8 state codes "
+                         f"hold at most {MAX_STATES}")
+    return codes, n_states

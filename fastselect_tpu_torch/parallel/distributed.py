@@ -1,0 +1,66 @@
+"""Multi-process initialisation and its failures.
+
+Counterpart of ``fastselect_tpu/parallel/distributed.py``.  The upstream
+reference is one process; a mesh that spans processes needs one handshake
+of the collective runtime first.  This wraps
+``torch.distributed.init_process_group`` (NCCL on CUDA, gloo on the CPU)
+with JAX's behaviour: nothing at all in a single process without cluster
+settings, and a clear ``RuntimeError`` when a peer cannot be reached.
+
+The layouts of ``fastselect_tpu_torch.parallel`` use none of this yet:
+their mesh is the devices of one process.  Fits are short and keep no
+state between calls, so recovery is a re-run; TuRF resumes from its
+per-round checkpoints (``models/turf.py``).
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
+
+
+def initialize(coordinator_address: str | None = None,
+               num_processes: int | None = None,
+               process_id: int | None = None,
+               timeout_s: int = 120) -> None:
+    """Join the process group (no-op in one process).
+
+    The arguments default to the usual launcher settings: ``MASTER_ADDR``
+    and ``MASTER_PORT`` for the coordinator's ``host:port``,
+    ``WORLD_SIZE`` and ``RANK``.  Without a world of more than one process
+    nothing happens.
+    """
+    if is_multihost():
+        return  # already initialised
+    env = os.environ
+    if num_processes is None:
+        num_processes = int(env.get("WORLD_SIZE", "1"))
+    if num_processes <= 1:
+        return
+    if process_id is None:
+        process_id = int(env.get("RANK", "0"))
+    if coordinator_address is None:
+        coordinator_address = (f"{env.get('MASTER_ADDR', 'localhost')}:"
+                               f"{env.get('MASTER_PORT', '29500')}")
+    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    try:
+        dist.init_process_group(
+            backend, init_method=f"tcp://{coordinator_address}",
+            world_size=num_processes, rank=process_id,
+            timeout=datetime.timedelta(seconds=timeout_s))
+    except (RuntimeError, ValueError, OSError) as e:
+        raise RuntimeError(
+            "Multi-process initialisation failed: a peer is unreachable or "
+            f"the coordinator address {coordinator_address!r} is wrong. "
+            "Check that every process can reach the coordinator and restart "
+            "the fit (fits keep no state; TuRF runs resume from their "
+            "checkpoints).") from e
+
+
+def is_multihost() -> bool:
+    """Whether this process belongs to a group of more than one."""
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)

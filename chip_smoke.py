@@ -111,7 +111,25 @@ Phases, one or two lines each on stdout:
     after phase 20.  Each prints its time and peak memory;
 22. profiling: ``utils.profiling.timed_fit`` on large-n, one fit's
     ``phase`` records at INFO, and one fit traced by
-    ``utils.profiling.trace`` into ``build/trace-large-n/``.
+    ``utils.profiling.trace`` into ``build/trace-large-n/``;
+23. mesh-procs: the mesh across processes.  Four processes sharing the
+    first card join a gloo group (:func:`run_processes`:
+    spawn, a ``FileStore`` in a temporary directory, a hard deadline of
+    ``MESH_PROCS_DEADLINE_S``), each with a quarter of the card's
+    focal-block budget, and run phase 21's layouts on the group's mesh
+    (one shard a process) on the same data: mesh-procs-large-n (the
+    automatic route: the continuous kernels in every process),
+    mesh-procs-mixed (the ``MIXED`` kernels), mesh-procs-snp (the feature
+    shard: its 1.07 GB int32 match summed by a host all_reduce),
+    mesh-procs-v2, mesh-procs-ring (blocks handed across processes),
+    mesh-procs-mdr and mesh-procs-stats.  Every rank's result equals every
+    other's bit for bit, and phase 21's on the same four shards bit for
+    bit, except mesh-procs-large-n, whose focal blocks follow the budget
+    shared on the card: within phase 21's tolerance.
+    Each prints its first and warm times, every process's peak memory and
+    its collectives' calls, bytes and seconds; the ring's sweeps and rules
+    are timed apart, here and in phase 21.  Then the collective helpers
+    run on the card in a one-rank NCCL group.
 
 Phases 14-20 print their first and warm fit times, int8 GEMM operations
 (``relief_discrete.gemm_ops``) and rate, peak device memory, the host
@@ -130,7 +148,11 @@ Phases 4-6 are the main path of the four kernels: every kernel launch
 count is set to 0 before them and read after them, less the launches of
 the small mixed fit's ``MIXED``-kernel reference and of mixed-xl's
 hybrid referee, and each kernel must have been launched there by a fit
-(the ``MIXED`` kernels by the 150-state and mixed-xl fits).
+(the ``MIXED`` kernels by the 150-state and mixed-xl fits).  Phase 23's
+processes must launch all four kernels too; their launches, summed over
+the processes' first fits, stand in the kernels' line as
+``mesh_procs_launches``.  A process that fails or outlives the deadline
+fails the script.
 Each fused-engine fit there and in phase 9 is held against the same
 engine run on the card with the plain PyTorch passes.  Phases 7 and 8 are
 the all-discrete path: the GEMM operation count is set to 0 before each
@@ -148,12 +170,17 @@ times, bounds and registers, per timed shape); the last line is
 
 from __future__ import annotations
 
+import datetime
+import hashlib
 import importlib.util
 import json
 import logging
 import math
+import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -220,6 +247,14 @@ INT8_PEAK_TOPS = _H100.int8_tops                # dense int8, TOP/s
 FP32_PEAK_FLOPS = _H100.fp32_tflops * 1e12      # outside the tensor cores
 HBM_BYTES_PER_S = _H100.hbm_gbps * 1e9          # device memory
 ALGO = {"MultiSURF": "multisurf", "SURF": "surf", "ReliefF": "relieff"}
+# phase 21's results on its first mesh (four shards on the first card),
+# which phase 23's processes are held to
+MESH_RESULTS: dict = {}
+# phase 23: processes sharing the first card, and their hard deadline
+MESH_PROCS = 4
+MESH_PROCS_DEADLINE_S = 300.0
+# the card's name and power limit (nvidia-smi), set by main
+SMI = "not read"
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +350,39 @@ def check(ok, what):
 def run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True,
                           timeout=60).stdout.strip()
+
+
+class PhaseRecords:
+    """Within the block (when ``on``), the package's ``phase`` records
+    whose names start with ``prefix`` are kept: INFO is on, so each of
+    them synchronises the cards at its edges and times the device."""
+
+    def __init__(self, prefix, on=True):
+        self.prefix, self.on, self.records = prefix, on, []
+
+    def __enter__(self):
+        if self.on:
+            self.logger = logging.getLogger("fastselect_tpu_torch")
+            self.level = self.logger.level
+            self.handler = logging.Handler()
+            self.handler.emit = self._emit
+            self.logger.setLevel(logging.INFO)
+            self.logger.addHandler(self.handler)
+        return self
+
+    def _emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith(self.prefix):
+            name, rest = msg.split(": ", 1)
+            self.records.append((name, float(rest.split("s")[0])))
+
+    def __exit__(self, *exc):
+        if self.on:
+            self.logger.removeHandler(self.handler)
+            self.logger.setLevel(self.level)
+
+    def summary(self):
+        return ", ".join(f"{name} {sec:.4f} s" for name, sec in self.records)
 
 
 def cuda_ms(fn, reps, warmup=1):
@@ -1470,9 +1538,9 @@ def mesh_name(mesh):
 
 class MeshRoute:
     """Within the block, the automatic routes take ``mesh``
-    (``relief._mesh_devices``), ``_RING_BYTES`` is ``ring_bytes`` when
-    given, and each (module, name) in ``spies`` counts its calls in
-    ``calls``."""
+    (``relief._mesh_devices``; None: the route's own mesh),
+    ``_RING_BYTES`` is ``ring_bytes`` when given, and each (module, name)
+    in ``spies`` counts its calls in ``calls``."""
 
     def __init__(self, mesh, spies=(), ring_bytes=None):
         self.mesh, self.spies, self.ring_bytes = mesh, spies, ring_bytes
@@ -1481,7 +1549,8 @@ class MeshRoute:
     def __enter__(self):
         self.saved = [(relief_mod, "_mesh_devices", relief_mod._mesh_devices),
                       (relief_mod, "_RING_BYTES", relief_mod._RING_BYTES)]
-        relief_mod._mesh_devices = lambda device: list(self.mesh)
+        if self.mesh is not None:
+            relief_mod._mesh_devices = lambda device: list(self.mesh)
         if self.ring_bytes is not None:
             relief_mod._RING_BYTES = self.ring_bytes
         for module, name in self.spies:
@@ -1502,7 +1571,7 @@ class MeshRoute:
 def mesh_timed(mesh, fn):
     """(fn(), seconds, peak GB over the mesh's devices) with every device
     synchronised at both ends and its peak statistics reset before."""
-    devs = psh.distinct(mesh)
+    devs = psh.distinct(parallel.make_mesh(mesh))
     for d in devs:
         torch.cuda.reset_peak_memory_stats(d)
         torch.cuda.synchronize(d)
@@ -1523,8 +1592,11 @@ def mesh_fit_phase(mesh, label, make, X, y, single, route, kind, tol,
     GEMMs and no Relief kernel), launch counts set to 0 before the first
     fit and read after it; its scores agree with ``single`` (the fit on
     one device) within ``tol`` (atol, rtol), its top_features_ alike.
+    The first mesh's scores are kept in ``MESH_RESULTS[label]``; a ring
+    fit's sweeps and rules are timed apart (``ring_phases``).
     Returns (first fit's seconds, warm fits' seconds, peak GB)."""
-    with MeshRoute(mesh, [route], ring_bytes) as mr:
+    with MeshRoute(mesh, [route], ring_bytes) as mr, \
+            PhaseRecords("ring.", on=ring_bytes is not None) as ring_log:
         rc.reset_launch_counts()
         rd.reset_gemm_ops()
         est, sec, peak = mesh_timed(mesh, lambda: make().fit(X, y))
@@ -1532,6 +1604,7 @@ def mesh_fit_phase(mesh, label, make, X, y, single, route, kind, tol,
         warm_s = [mesh_timed(mesh, lambda: make().fit(X, y))[1]
                   for _ in range(warm)]
     s = est.feature_importances_
+    MESH_RESULTS.setdefault(label, s)
     err = float(np.abs(s - single).max())
     top = np.argsort(single)[::-1][:len(est.top_features_)]
     check(mr.calls == [route[1]] * (1 + warm),
@@ -1560,6 +1633,9 @@ def mesh_fit_phase(mesh, label, make, X, y, single, route, kind, tol,
           f"{peak:.2f} GB; launches {launches}; gemm_ops {ops:.4e}; max "
           f"|scores - one device| {err:.3e}; top_features_ equal",
           flush=True)
+    if ring_log.records:
+        print(f"{label}: ring phases (synchronised at their edges) "
+              f"{ring_log.summary()} on {SMI}", flush=True)
     return sec, warm_s, peak
 
 
@@ -1576,6 +1652,7 @@ def mesh_mixed_phase(dev, mesh, X, y, single_est, discrete_limit=200):
         x_dev, y_enc, fa.recip, fa.is_discrete, algo="multisurf",
         devices=mesh))
     launches = dict(rc.launches)
+    MESH_RESULTS.setdefault(label, s)
     single = single_est.feature_importances_
     err = float(np.abs(s - single).max())
     top = np.argsort(s)[::-1][:len(single_est.top_features_)]
@@ -1623,6 +1700,7 @@ def mesh_mdr_phase(dev, mesh, X, y, planted, single):
           and np.array_equal(keys, single["keys"]),
           f"{label}: ranks {ranks} keys {keys} vs one device's "
           f"{single['ranks']} {single['keys']}")
+    MESH_RESULTS.setdefault(label, (est._fold_best, ranks, keys))
     del scorer
     print(f"{label}: MDR(k=3, cv=5) X {X.shape[0]}x{p} on {len(mesh)} "
           f"shards ({mesh_name(mesh)}) via ShardedMDRFoldScorer: fit "
@@ -1633,15 +1711,28 @@ def mesh_mdr_phase(dev, mesh, X, y, planted, single):
     return fit_s
 
 
+def stats_codes(n=2000, p=5000):
+    """mrmr's codes 0..4 (encoded with y) of the mesh-stats phases."""
+    rng = np.random.RandomState(14)
+    X = rng.randint(0, 5, (n, p))
+    y = rng.randint(0, 2, n)
+    return mrmr_mod._encode_union(X, y)[0]
+
+
+def digest(a) -> str:
+    """SHA-256 of an array's dtype, shape and bytes: equal digests, equal
+    bits."""
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.dtype}{a.shape}".encode()
+                          + a.tobytes()).hexdigest()
+
+
 def mesh_stats_phase(dev, mesh, n=2000, p=5000):
     """The MI matrix of mrmr's codes with its pair tiles sharded, equal bit
     for bit to the one-device matrix, and through pairwise_stat_matrix's
     route (symmetrised) equal to its one-device path."""
     label = "mesh-stats"
-    rng = np.random.RandomState(14)
-    X = rng.randint(0, 5, (n, p))
-    y = rng.randint(0, 2, n)
-    X_enc = mrmr_mod._encode_union(X, y)[0]
+    X_enc = stats_codes(n, p)
     rd.reset_gemm_ops()
     got, sec, peak = mesh_timed(mesh, lambda: feature_shard
                                 .sharded_pairwise_stat_matrix(
@@ -1651,6 +1742,7 @@ def mesh_stats_phase(dev, mesh, n=2000, p=5000):
         X_enc, 5, "mi", device=dev, symmetric=False))
     check(ops > 0 and np.array_equal(got, want),
           f"{label}: sharded MI matrix == one device's, bit for bit")
+    MESH_RESULTS.setdefault(label, digest(got))
     with MeshRoute(mesh, [(feature_shard, "sharded_pairwise_stat_matrix")]
                    ) as mr:
         sym = ct.pairwise_stat_matrix(X_enc, 5, "mi", device=dev)
@@ -1707,6 +1799,347 @@ def profiling_phase(dev, X, y, logdir):
           f"({path.stat().st_size} bytes); kernels' device time {busy:.4f} "
           f"s of the fit's {wall:.4f} s under the profiler", flush=True)
     return timing
+
+
+# ---------------------------------------------------------------------------
+# The mesh across processes: four processes sharing the first card
+# ---------------------------------------------------------------------------
+
+def _member(rank, fn, args, world, store_path, out_dir, timeout_s):
+    """One process of :func:`run_processes`: join the gloo group, run
+    ``fn``, write its result."""
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store_path, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        out = fn(*args)
+        with open(Path(out_dir) / f"{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_processes(fn, world: int, args=(), *, deadline_s: float = 120.0):
+    """``fn(*args)`` in ``world`` new processes (the ``spawn`` start
+    method) joined in a gloo group through a ``FileStore`` in a temporary
+    directory; each rank's return value, in rank order.
+
+    ``fn`` must be importable by the children (a module's top-level
+    function).  A process that raises makes this raise (the others are
+    ended); processes still running after ``deadline_s`` seconds, as a
+    deadlocked collective leaves them, are terminated and a
+    ``TimeoutError`` is raised."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory(prefix="fs_group_") as tmp:
+        ctx = mp.spawn(_member, nprocs=world, join=False, args=(
+            fn, args, world, str(Path(tmp) / "store"), tmp,
+            int(deadline_s) + 60))
+        stop = time.monotonic() + deadline_s
+        try:
+            while not ctx.join(timeout=max(stop - time.monotonic(), 0.1)):
+                if time.monotonic() >= stop:
+                    raise TimeoutError(
+                        f"{world} processes still running after "
+                        f"{deadline_s} s: terminated")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+            for proc in ctx.processes:
+                proc.join(5)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        out = []
+        for rank in range(world):
+            with open(Path(tmp) / f"{rank}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+# phase 23's layouts: (label, phase 21's label, route (module, name), kind
+# of work, held to phase 21 bit for bit: all but large-n, whose focal
+# blocks follow the budget shared on the card)
+PROCS_LAYOUTS = (
+    ("mesh-procs-large-n", "mesh-large-n", (psh, "sharded_relief_scores"),
+     "cont", False),
+    ("mesh-procs-mixed", "mesh-mixed", (psh, "sharded_relief_scores"),
+     "mixed", True),
+    ("mesh-procs-snp", "mesh-snp",
+     (feature_shard, "feature_sharded_relief_discrete_scores"), "gemm",
+     True),
+    ("mesh-procs-v2", "mesh-v2", (psh, "_sharded_discrete_v2"), "gemm",
+     True),
+    ("mesh-procs-ring", "mesh-ring", (parallel.ring, "_ring_skip_table"),
+     "gemm", True),
+    ("mesh-procs-mdr", "mesh-mdr", (mdr_mod, "ShardedMDRFoldScorer"), "gemm",
+     True),
+    ("mesh-procs-stats", "mesh-stats",
+     (feature_shard, "sharded_pairwise_stat_matrix"), "gemm", True))
+
+
+def procs_timed(dev, fn):
+    """(fn(), seconds, peak GB) in one process of the group: the group
+    starts together (a barrier), this process's card is synchronised at
+    both ends and its peak statistics reset before."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    sec = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
+            else 0.0)
+    return out, sec, peak
+
+
+def procs_run(dev, fn, route, keep, warm=0, ring_bytes=None):
+    """One layout in a process of the group: ``fn()`` through ``route``
+    (module, name) on the group's own mesh, then ``warm`` more; the launch
+    counts, ``gemm_ops`` and the collectives' counts set to 0 before the
+    first and read after it."""
+    with MeshRoute(None, [route], ring_bytes) as mr, \
+            PhaseRecords("ring.", on=ring_bytes is not None) as ring_log:
+        rc.reset_launch_counts()
+        rd.reset_gemm_ops()
+        psh.reset_comm()
+        out, sec, peak = procs_timed(dev, fn)
+        launches, ops, comm = dict(rc.launches), rd.gemm_ops, dict(psh.comm)
+        ring = list(ring_log.records)
+        warm_s = [procs_timed(dev, fn)[1] for _ in range(warm)]
+    return {"result": keep(out), "first_s": sec, "warm_s": warm_s,
+            "peak_gb": peak, "launches": launches, "gemm_ops": ops,
+            "comm": comm, "calls": list(mr.calls), "ring": ring}
+
+
+def mesh_procs_worker(paths, device, stats_shape, setup=None):
+    """One of phase 23's processes (a gloo group): every layout on the
+    group's mesh, one shard a process, with the focal-block budget shared
+    among the processes on the card; each layout's result, times, peak
+    memory, launches, ``gemm_ops`` and collective bytes and seconds.
+    ``setup`` (a test's) runs first."""
+    if setup is not None:
+        setup()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    data = {name: np.load(path) for name, path in paths.items()}
+    mesh = parallel.make_mesh()
+    scores = lambda est: est.feature_importances_  # noqa: E731
+    make = lambda: MultiSURF(n_features_to_select=10)  # noqa: E731
+    make_v2 = lambda: MultiSURF(n_features_to_select=3,  # noqa: E731
+                                use_star=True)
+    runs = {}
+    runs["mesh-procs-large-n"] = procs_run(
+        dev, lambda: make().fit(data["X_n"], data["y_n"]),
+        PROCS_LAYOUTS[0][2], scores, warm=1)
+    x_dev = torch.tensor(data["X_mf"], dtype=torch.float32, device=dev)
+    fa = analyze_features(x_dev, 200)
+    y_enc = np.unique(data["y_mf"], return_inverse=True)[1]
+    runs["mesh-procs-mixed"] = procs_run(
+        dev, lambda: psh.sharded_relief_scores(
+            x_dev, y_enc, fa.recip, fa.is_discrete, algo="multisurf",
+            devices=mesh), PROCS_LAYOUTS[1][2], lambda s: s, warm=1)
+    runs["mesh-procs-snp"] = procs_run(
+        dev, lambda: make().fit(data["X_snp"], data["y_snp"]),
+        PROCS_LAYOUTS[2][2], scores)
+    del data["X_snp"]
+    X, y = data["X_v2"], data["y_v2"]
+    runs["mesh-procs-v2"] = procs_run(dev, lambda: make_v2().fit(X, y),
+                                      PROCS_LAYOUTS[3][2], scores)
+    runs["mesh-procs-ring"] = procs_run(dev, lambda: make_v2().fit(X, y),
+                                        PROCS_LAYOUTS[4][2], scores,
+                                        ring_bytes=X.size - 1)
+    X, y, k = data["X_k3"], data["y_k3"], 3
+    mdr = procs_run(dev, lambda: MDR(k=k, cv=5).fit(X, y),
+                    PROCS_LAYOUTS[5][2], lambda est: est)
+    est = mdr["result"]
+    _, w_case, w_ctrl = mdr_folds(est, X, y)
+    p = X.shape[1]
+    scorer = parallel.ShardedMDRFoldScorer(X, w_case, w_ctrl, k,
+                                           devices=mesh)
+    (_, keys, ranks), search_s, _ = procs_timed(dev, lambda: scorer.search(
+        p, math.comb(p, k), chunk=mdr_mod._COMBO_CHUNK))
+    mdr.update(result=(est._fold_best, ranks, keys), search_s=search_s,
+               best=(est.best_interaction_, est.best_cvc_))
+    runs["mesh-procs-mdr"] = mdr
+    X_enc = stats_codes(*stats_shape)
+    runs["mesh-procs-stats"] = procs_run(
+        dev, lambda: feature_shard.sharded_pairwise_stat_matrix(
+            X_enc, 5, "mi", devices=mesh), PROCS_LAYOUTS[6][2], digest)
+    return {"rank": torch.distributed.get_rank(),
+            "mesh": [str(d) for d in mesh],
+            "sharers": psh.sharers(mesh, dev), "runs": runs,
+            "imports": [m for m in ("jax", "fastselect_tpu")
+                        if m in sys.modules]}
+
+
+def same(a, b) -> bool:
+    """a and b equal bit for bit (arrays, digests, or tuples of them)."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same(u, v) for u, v in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def collectives_check(dev, backend):
+    """The collective helpers in a one-rank ``backend`` group on ``dev``
+    (NCCL on the card): float psum, integer psum, tiled all_gather of
+    uneven parts and merge_disjoint equal to the one-process mesh's bits.
+    Returns (calls, bytes, seconds) of the group's collectives."""
+    import torch.distributed as dist
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory(prefix="fs_one_rank_") as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(
+            str(Path(tmp) / "store"), 1), rank=0, world_size=1)
+        try:
+            group = parallel.make_mesh([(0, dev)] * 4)
+            one = parallel.make_mesh([dev] * 4)
+            gen = torch.Generator(device=dev).manual_seed(23)
+            parts = [torch.randn(1 << 16, device=dev, generator=gen)
+                     * 10.0 ** s for s in range(4)]
+            ints = [torch.randint(-1000, 1000, (1 << 16,), device=dev,
+                                  generator=gen, dtype=torch.int32)
+                    for _ in range(4)]
+            uneven = [p[:n] for p, n in zip(parts, (5, 0, 17, 3))]
+            psh.reset_comm()
+            check(torch.equal(psh.psum(parts, group),
+                              psh.psum(parts, one)),
+                  f"{backend}: float psum == the one-process mesh's bits")
+            check(torch.equal(psh.psum(ints, group), psh.psum(ints, one)),
+                  f"{backend}: integer psum (all_reduce) exact")
+            check(torch.equal(psh.all_gather(uneven, group),
+                              psh.all_gather(uneven, one)),
+                  f"{backend}: all_gather of uneven parts")
+            check(torch.equal(psh.merge_disjoint(parts[3], group),
+                              parts[3]),
+                  f"{backend}: merge_disjoint keeps the bits")
+            check(group.group is not None and psh.comm["calls"] == 5,
+                  f"{backend}: the helpers called the collectives "
+                  f"({psh.comm})")
+            return dict(psh.comm)
+        finally:
+            dist.destroy_process_group()
+
+
+def mesh_procs_phase(dev, data, stats_shape=(2000, 5000), setup=None):
+    """23. mesh-procs: ``MESH_PROCS`` processes sharing ``dev`` in a gloo
+    group (:func:`run_processes`: spawn, a FileStore, a hard
+    deadline), each running every layout of ``PROCS_LAYOUTS`` on the
+    group's mesh; every rank's result equal to every other's bit for bit
+    and held to phase 21's on the same four shards (``MESH_RESULTS``),
+    bit for bit where ``PROCS_LAYOUTS`` says so, else within phase 21's
+    tolerance; then the collectives on ``dev`` in a one-rank group
+    (NCCL on the card).  Returns each kernel's launches summed over the
+    processes' first fits."""
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "mesh-procs"
+    root.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for name, a in data.items():
+        paths[name] = str(root / f"{name}.npy")
+        np.save(paths[name], a)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    staged_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        reports = run_processes(
+            mesh_procs_worker, MESH_PROCS,
+            (paths, str(dev), stats_shape, setup),
+            deadline_s=MESH_PROCS_DEADLINE_S)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    group_s = time.perf_counter() - t0
+    check([r["rank"] for r in reports] == list(range(MESH_PROCS)),
+          "mesh-procs: every rank reported")
+    for r in reports:
+        check(r["mesh"] == [str(dev)] * MESH_PROCS
+              and r["sharers"] == MESH_PROCS and r["imports"] == [],
+              f"mesh-procs rank {r['rank']}: mesh {r['mesh']}, "
+              f"{r['sharers']} processes on the card, imports "
+              f"{r['imports']}")
+    launches = {name: 0 for name in KERNELS}
+    for label, ref_label, route, kind, exact in PROCS_LAYOUTS:
+        runs = [r["runs"][label] for r in reports]
+        first = runs[0]["result"]
+        want = MESH_RESULTS[ref_label]
+        for rank, run in enumerate(runs):
+            check(run["calls"] == [route[1]] * (1 + len(run["warm_s"])),
+                  f"{label} rank {rank}: routed to {run['calls']}")
+            got = run["launches"]
+            if kind == "gemm":
+                check(not any(got.values()),
+                      f"{label} rank {rank}: no Relief kernel ({got})")
+            else:
+                other = "mixed" if kind == "cont" else "cont"
+                check(got[f"relief_pass1_{kind}"] > 0
+                      and got[f"relief_pass2_{kind}"] > 0
+                      and got[f"relief_pass1_{other}"] == 0
+                      and got[f"relief_pass2_{other}"] == 0,
+                      f"{label} rank {rank}: launched the {kind} kernels "
+                      f"{got}")
+            for name in launches:
+                launches[name] += got[name]
+            check(run["comm"]["calls"] > 0 and run["comm"]["bytes"] > 0,
+                  f"{label} rank {rank}: collectives {run['comm']}")
+            check(same(run["result"], first),
+                  f"{label}: rank {rank}'s result == rank 0's, bit for bit")
+        if kind == "gemm":
+            check(sum(r["gemm_ops"] for r in runs) > 0,
+                  f"{label}: int8 GEMMs on the processes")
+        if exact:
+            check(same(first, want),
+                  f"{label}: == {ref_label}'s (one process), bit for bit")
+            err = "0 (bit for bit)"
+        else:
+            err = float(np.abs(first - want).max())
+            check(np.isfinite(first).all() and err <= fit_tol(want),
+                  f"{label}: max |scores - {ref_label}| {err}")
+            err = f"{err:.3e}"
+        warm = [max(run["warm_s"][i] for run in runs)
+                for i in range(len(runs[0]["warm_s"]))]
+        extra = ""
+        if label == "mesh-procs-mdr":
+            extra = (f", search alone {max(r['search_s'] for r in runs):.4f}"
+                     f" s, best {runs[0]['best']}")
+        if runs[0]["ring"]:
+            extra = "; ring phases (slowest rank) " + ", ".join(
+                f"{name} {max(r['ring'][i][1] for r in runs):.4f} s"
+                for i, (name, _) in enumerate(runs[0]["ring"]))
+        print(f"{label}: {MESH_PROCS} processes x 1 shard on {dev} via "
+              f"{route[1]}; first fit {max(r['first_s'] for r in runs):.4f}"
+              f" s (slowest rank){''.join(f', warm {t:.4f} s' for t in warm)}"
+              f"; peak GB a process "
+              f"{[round(r['peak_gb'], 3) for r in runs]}; collectives a "
+              f"process {runs[0]['comm']['calls']} calls, "
+              f"{runs[0]['comm']['bytes'] / 1e6:.3f} MB, "
+              f"{max(r['comm']['seconds'] for r in runs):.4f} s (slowest "
+              f"rank); launches {[sum(r['launches'].values()) for r in runs]}"
+              f", gemm_ops {[r['gemm_ops'] for r in runs]}{extra}; "
+              f"every rank equal; max |result - {ref_label}| {err} on "
+              f"{SMI}", flush=True)
+    for name in KERNELS:
+        check(launches[name] > 0,
+              f"{name} launched by phase 23's processes")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    comm = collectives_check(dev, backend)
+    print(f"mesh-procs: data staged in {staged_s:.2f} s; group of "
+          f"{MESH_PROCS} processes (spawn, start included) {group_s:.2f} s;"
+          f" launches over the processes {launches}; a one-rank {backend} "
+          f"group on {dev}: psum, all_gather, merge_disjoint equal to the "
+          f"one-process mesh ({comm['calls']} collectives, "
+          f"{comm['bytes'] / 1e6:.3f} MB, {comm['seconds']:.4f} s) on "
+          f"{SMI}", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1916,8 +2349,9 @@ def main():
     mesh_s = {}
 
     # 1. environment
-    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"]).splitlines()[0]
+    global SMI
+    smi = SMI = run(["nvidia-smi", "--query-gpu=name,power.limit",
+                     "--format=csv,noheader"]).splitlines()[0]
     nvcc = _build.find_nvcc()
     nvcc_ver = run([nvcc, "--version"]).splitlines()[-1]
     try:
@@ -2000,7 +2434,6 @@ def main():
             (psh, "sharded_relief_scores"), "cont", fit_tol_n)
         mesh_s["mesh-mixed"] = mesh_mixed_phase(dev, mesh, X_mf, y_mf,
                                                 est_mf)
-    del X_mf
     print(f"mesh-large-n and mesh-mixed: phase "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -2035,6 +2468,7 @@ def main():
             (feature_shard, "feature_sharded_relief_discrete_scores"),
             "gemm", DISC_TOL, warm=0)
     print(f"mesh-snp: phase {time.perf_counter() - t0:.2f} s", flush=True)
+    X_snp, y_snp = X, y
     del X
 
     # 8. the other tiers
@@ -2066,6 +2500,7 @@ def main():
             ring_bytes=X.size - 1)
     print(f"mesh-v2 and mesh-ring: phase {time.perf_counter() - t0:.2f} s",
           flush=True)
+    X_v2, y_v2 = X, y
     X, y = planted_genotypes(3, 8192, 16384, 2)
     discrete_phase(dev, "tier-v2-sym", SURF(n_features_to_select=3),
                    X.astype(np.float64), y, "v2-sym")
@@ -2144,9 +2579,21 @@ def main():
                                  / "trace-large-n")
     print(f"profiling: phase {time.perf_counter() - t0:.2f} s", flush=True)
 
+    # 23. the mesh across processes: four processes on the first card, and
+    # the collectives in a one-rank NCCL group
+    t0 = time.perf_counter()
+    procs_launches = mesh_procs_phase(dev, {
+        "X_n": X_n, "y_n": y_n, "X_mf": X_mf, "y_mf": y_mf,
+        "X_snp": X_snp, "y_snp": y_snp, "X_v2": X_v2, "y_v2": y_v2,
+        "X_k3": mdr_k3["X"], "y_k3": mdr_k3["y"]})
+    del X_snp
+    procs_s = time.perf_counter() - t0
+    print(f"mesh-procs: phase {procs_s:.2f} s on {smi}", flush=True)
+
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_launches[name], "max_abs_err": err[name],
+         "mesh_procs_launches": procs_launches[name],
          **{k: timing[name][0][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "shape": timing[name][0]["shape"], "shapes": timing[name],
@@ -2173,8 +2620,8 @@ def main():
           f"mdr-k4 {mdr_k4['first_s']:.4f} s (phase {k4_sec:.2f} s); "
           + ", ".join(f"{k} {v if isinstance(v, float) else v[0]:.4f} s"
                       for k, v in mesh_s.items())
-          + f" (first fits on {len(meshes[-1])} shards); timed_fit large-n "
-          f"{fit_timing.seconds:.4f} s"
+          + f" (first fits on {len(meshes[-1])} shards); mesh-procs phase "
+          f"{procs_s:.2f} s; timed_fit large-n {fit_timing.seconds:.4f} s"
           + f" on {smi}; chip_smoke {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps(summary), flush=True)

@@ -21,6 +21,7 @@ import numpy as np
 from ..ops import relief
 from ..ops.mdr_op import MDRFoldScorer, unrank_combos
 from ..parallel.mdr_shard import ShardedMDRFoldScorer
+from ..parallel.sharded import check_same_inputs, make_mesh
 from ..utils.backend import default_device, resolve_backend
 from ..utils.sklearn_compat import (BaseEstimator, ClassifierMixin,
                                     StratifiedKFold, check_array,
@@ -76,9 +77,12 @@ class MDR(BaseEstimator, ClassifierMixin):
     def _make_fold_scorer(self, X, w_case, w_ctrl, device):
         """All-folds combo scorer: the combos sharded over every visible
         GPU when there is more than one (``ops/relief.py:_mesh_devices``,
-        off under ``FS_NO_AUTO_SHARD=1``), else on the fit's device."""
+        off under ``FS_NO_AUTO_SHARD=1``; across processes every process
+        must hold the same X and folds, checked), else on the fit's
+        device."""
         devs = relief._mesh_devices(device)
         if len(devs) > 1:
+            check_same_inputs(make_mesh(devs), X, w_case, w_ctrl)
             return ShardedMDRFoldScorer(X, w_case, w_ctrl, self.k,
                                         devices=devs)
         return MDRFoldScorer(X, w_case, w_ctrl, self.k, device=device)

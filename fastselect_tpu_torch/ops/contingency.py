@@ -355,25 +355,29 @@ def pair_tile(n: int, p: int, s: int) -> int:
 
 def _pair_blocks(xt: torch.Tensor, n: int, s: int, stat: str,
                  log_base: float, *, upper: bool = True,
-                 tile: int | None = None, devices=None) -> torch.Tensor:
+                 tile: int | None = None, mesh=None) -> torch.Tensor:
     """(p, p) float32 statistic of the feature pairs of the staged codes,
     on their device, one GEMM a pair of tiles: the blocks on and above the
     diagonal (``upper``), else all of them.  Every entry comes from its
-    own table, so the tile size changes no entry.  A mesh (``devices``, a
-    sequence of devices) deals the tile rows round-robin over its devices,
-    each holding all the codes; a block is computed there as it would be
-    on xt's device."""
+    own table, so the tile size changes no entry.  A mesh
+    (``parallel.sharded.Mesh``) deals the tile rows round-robin over its
+    shards, each device holding all the codes; a block is computed there
+    as it would be on xt's device.  Only this process's shards compute:
+    the tile rows of another process's stay zero here."""
+    from ..parallel.sharded import distinct, make_mesh
     p = xt.shape[0]
     tile = tile or pair_tile(n, p, s)
     nt = -(-p // tile)
-    mesh = tuple(devices or (xt.device,))
-    codes = {d: xt.to(d, non_blocking=True) for d in dict.fromkeys(mesh)}
+    mesh = mesh or make_mesh([xt.device])
+    codes = {d: xt.to(d, non_blocking=True) for d in distinct(mesh)}
 
     def operand(t, d):
         return _PairOperand(codes[d][t * tile:(t + 1) * tile], s, tile)
 
     R = torch.zeros((p, p), dtype=torch.float32, device=xt.device)
     for ti in range(nt):
+        if ti % len(mesh) not in mesh.mine:
+            continue
         dev = mesh[ti % len(mesh)]
         a = operand(ti, dev)
         for tj in range(ti if upper else 0, nt):
@@ -428,6 +432,8 @@ def pairwise_stat_matrix(X_enc, s: int, stat: str, device=None,
     devs = _relief._mesh_devices(device) if X_enc.shape[1] >= 1024 else []
     if len(devs) > 1:
         from ..parallel.feature_shard import sharded_pairwise_stat_matrix
+        from ..parallel.sharded import check_same_inputs, make_mesh
+        check_same_inputs(make_mesh(devs), X_enc)
         out = sharded_pairwise_stat_matrix(X_enc, s, stat, devices=devs,
                                            log_base=log_base)
         if symmetric:
@@ -465,7 +471,9 @@ class StagedColumnStats:
     With more than one device in the mesh of a fit on ``device``
     (``relief._mesh_devices``) the feature tiles are dealt round-robin over
     it: each tile's codes are staged on its device once, and its tables
-    are computed there and gathered on ``device``."""
+    are computed there and gathered on ``device``.  Across processes each
+    computes the tiles of its own shards, and the int32 tables add by
+    all_reduce (every other process's rows are zero)."""
 
     def __init__(self, X_enc, s: int, device=None,
                  log_base: float = math.log(2.0)):
@@ -477,14 +485,19 @@ class StagedColumnStats:
         self.drop = self.s >= 3
         width = self.s - 1 if self.drop else self.s
         self.tile = _vector_tile(self.xt.shape[1], self.p, width)
+        from ..parallel.sharded import check_same_inputs, make_mesh
         mesh = _relief._mesh_devices(self.device)
-        mesh = mesh if len(mesh) > 1 else [self.device]
+        self._mesh = make_mesh(mesh if len(mesh) > 1 else [self.device])
+        check_same_inputs(self._mesh, X_enc)
         # (first feature, features, staged codes, marginals of states 1..)
+        # of this process's tiles
         self._tiles = []
         for i, t0 in enumerate(range(0, self.p, self.tile)):
             f = min(self.tile, self.p - t0)
-            xt = self.xt[t0:t0 + f].to(mesh[i % len(mesh)],
-                                       non_blocking=True)
+            s = i % len(self._mesh)
+            if s not in self._mesh.mine:
+                continue
+            xt = self.xt[t0:t0 + f].to(self._mesh[s], non_blocking=True)
             marg = (_marginals(_onehot_rows(xt, width, first=1), f, width)
                     if self.drop else None)
             self._tiles.append((t0, f, xt, marg))
@@ -493,13 +506,20 @@ class StagedColumnStats:
         """(p, s, s_v) int32 tables of every feature against 1-D codes v
         (host array or tensor): one GEMM a feature tile, on its device.
         At s >= 3 states 1.. of both sides are contracted and state 0 is
-        recovered from the staged marginals."""
+        recovered from the staged marginals.  Across processes every
+        process must pass the same v (checked)."""
+        from ..parallel.sharded import check_same_inputs
+        check_same_inputs(self._mesh, v_enc)
+        return self._tables(v_enc, s_v)
+
+    def _tables(self, v_enc, s_v: int) -> torch.Tensor:
         first = int(self.drop)
         sxm, svm = self.s - first, s_v - first
         v = _stage_vector(v_enc, self.xt.shape[1], self.device)
         rhs = {}   # device -> (v's one-hot, its marginals)
-        out = torch.empty((self.p, self.s, s_v), dtype=torch.int32,
-                          device=self.device)
+        spans = self._mesh.group is not None
+        out = (torch.zeros if spans else torch.empty)(
+            (self.p, self.s, s_v), dtype=torch.int32, device=self.device)
         for t0, f, xt, marg in self._tiles:
             if xt.device not in rhs:
                 b = _onehot_rows(v.to(xt.device, non_blocking=True)[None, :],
@@ -511,15 +531,23 @@ class StagedColumnStats:
             sub = _dot_t(a, b)[:f * sxm, :svm].view(f, sxm, svm)
             tables = _assemble(sub, marg, mv, self.n) if self.drop else sub
             out[t0:t0 + f] = tables.to(self.device, non_blocking=True)
+        if spans:
+            from ..parallel.sharded import psum
+            out = psum([out], self._mesh)
         return out
 
     def stats_vs(self, v_enc, s_v: int, stat: str) -> np.ndarray:
         """stat(X_f, v) for every feature f against the 1-D codes v, host
         float64."""
-        return tables_stat(self.tables_vs(v_enc, s_v), self.n, stat,
+        return self._stats(self.tables_vs(v_enc, s_v), stat)
+
+    def _stats(self, tables: torch.Tensor, stat: str) -> np.ndarray:
+        return tables_stat(tables, self.n, stat,
                            self.log_base).cpu().numpy().astype(np.float64)
 
     def column(self, j: int, stat: str) -> np.ndarray:
         """One COLUMN of the pairwise statistic matrix, O(p * s^2); the
-        staged codes of feature j never leave the device."""
-        return self.stats_vs(self.xt[int(j), :self.n], self.s, stat)
+        staged codes of feature j never leave the device (nor are they
+        checked across processes: they are the checked X's)."""
+        return self._stats(self._tables(self.xt[int(j), :self.n], self.s),
+                           stat)

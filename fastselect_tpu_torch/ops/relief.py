@@ -211,11 +211,20 @@ _RING_BYTES = 4 << 30
 
 def _mesh_devices(device) -> list:
     """The mesh of the automatic multi-device routes for a fit on
-    ``device``: every visible CUDA device when ``device`` is a CUDA device,
-    else none; none under ``FS_NO_AUTO_SHARD=1``."""
-    if device is None or torch.device(device).type != "cuda":
+    ``device``: in a process group of more than one process, the group's
+    mesh (``parallel.make_mesh()``: every process's devices, even one
+    each) when its devices are of ``device``'s type; else every visible
+    CUDA device when ``device`` is a CUDA device; none otherwise, and none
+    under ``FS_NO_AUTO_SHARD=1``."""
+    if device is None or os.environ.get("FS_NO_AUTO_SHARD") == "1":
         return []
-    if os.environ.get("FS_NO_AUTO_SHARD") == "1":
+    kind = torch.device(device).type
+    from ..parallel import distributed
+    if distributed.is_multihost():
+        from ..parallel.sharded import make_mesh
+        mesh = make_mesh()
+        return mesh if all(d.type == kind for d in mesh) else []
+    if kind != "cuda":
         return []
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
@@ -226,8 +235,12 @@ def _sharded_dispatch(x, y, recip, is_discrete, devs, *, algo, use_star,
     sample shard (codes on every device), the feature shard when p >> n
     (the GWAS layout), or the ring when the codes are too large to hold
     on every device; any other data takes the sample shard of the fused
-    engine."""
-    n, p = (x if codes is None else codes).shape
+    engine.  Across processes every process must pass the same X and y:
+    ``check_same_inputs`` raises on every process otherwise."""
+    from ..parallel.sharded import check_same_inputs, home, make_mesh
+    data = x if codes is None else codes
+    check_same_inputs(make_mesh(devs), data, y)
+    n, p = data.shape
     kw = dict(algo=algo, use_star=use_star, n_neighbors=n_neighbors,
               class_probs=class_probs, devices=devs)
     if relief_engine(n, is_discrete, n_states) != "discrete":
@@ -236,7 +249,7 @@ def _sharded_dispatch(x, y, recip, is_discrete, devs, *, algo, use_star,
     if codes is None:
         from ..utils.preprocessing import encode_columns
         codes, n_unique, _ = encode_columns(torch.as_tensor(x).to(
-            devs[0], torch.float32))
+            home(make_mesh(devs)), torch.float32))
         n_states = int(n_unique.max())
     kw["n_states"] = n_states or None
     if n * p > _RING_BYTES:

@@ -357,15 +357,16 @@ def _focal_block_rows(n_pad: int, ti: int, budget_bytes: int,
     return ti * max(d for d in range(1, min(cap, m) + 1) if m % d == 0)
 
 
-def _block_budget_bytes(device: torch.device) -> int:
+def _block_budget_bytes(device: torch.device, sharers: int = 1) -> int:
     """Bytes a focal block may use: a share of the memory PyTorch could
-    still allocate on ``device`` (free on the card plus its own cache)."""
+    still allocate on ``device`` (free on the card plus its own cache),
+    divided among the ``sharers`` processes whose shards sit on it."""
     if device.type != "cuda":
-        return _CPU_BLOCK_BYTES
+        return _CPU_BLOCK_BYTES // sharers
     free, _ = torch.cuda.mem_get_info(device)
     cached = (torch.cuda.memory_reserved(device)
               - torch.cuda.memory_allocated(device))
-    return int((free + cached) * _FREE_MEM_FRACTION)
+    return int((free + cached) * _FREE_MEM_FRACTION) // sharers
 
 
 class BlockPlan(NamedTuple):
@@ -374,14 +375,21 @@ class BlockPlan(NamedTuple):
     nb: int      # focal rows per block
 
 
+def padded_features(p: int, n_disc: int = 0) -> int:
+    """Padded features of an (n, p) fit with ``n_disc`` discrete columns:
+    the discrete and the continuous run each pad to ``TILE_FEATURES``
+    (:func:`feature_positions`)."""
+    return max(TILE_FEATURES, _round_up(n_disc, TILE_FEATURES)
+               + _round_up(p - n_disc, TILE_FEATURES))
+
+
 def block_plan(n: int, p: int, device: torch.device,
                algo: str = "multisurf", *, n_disc: int = 0) -> BlockPlan:
     """Padded shape and focal block rows for an (n, p) fit of ``algo`` on
     ``device`` with ``n_disc`` discrete columns: the discrete and the
     continuous run each pad to ``TILE_FEATURES`` (:func:`feature_positions`)."""
     n_pad = _round_up(max(n, 1), TILE_ROWS)
-    p_pad = max(TILE_FEATURES, _round_up(n_disc, TILE_FEATURES)
-                + _round_up(p - n_disc, TILE_FEATURES))
+    p_pad = padded_features(p, n_disc)
     per_pair = (_RELIEFF_BYTES_PER_PAIR if algo == "relieff"
                 else _BYTES_PER_PAIR)
     nb = _focal_block_rows(n_pad, TILE_ROWS, _block_budget_bytes(device),

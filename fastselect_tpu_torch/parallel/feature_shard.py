@@ -28,7 +28,8 @@ from ..ops import relief_discrete as rd
 from ..ops.chi2_op import chi2_device
 from ..ops.relief import pair_weight_rules
 from .sharded import (_discrete_inputs, _round_up, _scalars, all_gather,
-                      distinct, make_mesh, psum)
+                      distinct, home, make_mesh, merge_disjoint, plan_device,
+                      psum)
 
 
 def feature_sharded_relief_discrete_scores(
@@ -52,6 +53,8 @@ def feature_sharded_relief_discrete_scores(
     over all samples (``_accumulate_discrete``).  The weight rules and
     pass 2 run a focal block at a time either way, on the one-device
     engine's blocks, and pass 2's block partials are summed in float64.
+    Across processes each runs its own shards: the int32 match counts add
+    by all_reduce, and the scores are gathered.
     """
     mesh = make_mesh(devices)
     ndev = len(mesh)
@@ -59,10 +62,10 @@ def feature_sharded_relief_discrete_scores(
                                            mesh)
     n, p = codes.shape
     y = np.asarray(y)
-    dev0 = mesh[0]
+    dev0 = home(mesh)
     pb0 = max(-(-p // ndev), 1)
     layout, ti, ft = rd._tiles_and_layout(n, pb0, n_states, y, algo,
-                                          class_probs, dev0)
+                                          class_probs, plan_device(mesh))
     if layout is not None:
         classes, perm, segments, block_class, n_pad = layout
         codes = codes[torch.as_tensor(perm, device=dev0)]
@@ -83,8 +86,8 @@ def feature_sharded_relief_discrete_scores(
     yv[:n] = torch.as_tensor(y.astype(np.int64), device=dev0)
     valid = torch.zeros(n_pad, dtype=torch.float32, device=dev0)
     valid[:n] = 1.0
-    shards = [codes[:, s * pb:(s + 1) * pb].to(d, non_blocking=True)
-              for s, d in enumerate(mesh)]
+    shards = [codes[:, s * pb:(s + 1) * pb].to(mesh[s], non_blocking=True)
+              for s in mesh.mine]
 
     # pass 1: partial match counts over each shard's features, summed
     match = psum([rd._match_rows(c, c, ft, n_states) for c in shards], mesh)
@@ -129,17 +132,19 @@ def sharded_pairwise_stat_matrix(
     """(p, p) pairwise 'mi' or 'su' matrix, host float64, with the
     feature-pair tiles' block rows dealt over the mesh: each tile row of
     the matrix (a tile of features against all features) is computed on
-    one device, which holds every feature's codes.
+    one device, which holds every feature's codes.  Across processes each
+    computes the tile rows of its own shards, and the rows are merged
+    exactly (``sharded.merge_disjoint``).
 
     The tiles, their operands and their statistic are those of
     ``contingency.pairwise_stat_matrix(..., symmetric=False)``, so every
     entry equals it bit for bit (each entry comes from its own exact
     integer table)."""
     mesh = make_mesh(devices)
-    xt = ct.stage_codes(X_enc, s, mesh[0])
+    xt = ct.stage_codes(X_enc, s, home(mesh))
     R = ct._pair_blocks(xt, X_enc.shape[0], s, stat, log_base, upper=False,
-                        tile=tile, devices=mesh)
-    return R.cpu().numpy().astype(np.float64)
+                        tile=tile, mesh=mesh)
+    return merge_disjoint(R, mesh).cpu().numpy().astype(np.float64)
 
 
 def sharded_chi2_stats(x, y_mapped, n_classes: int, *,
@@ -150,9 +155,10 @@ def sharded_chi2_stats(x, y_mapped, n_classes: int, *,
     mesh = make_mesh(devices)
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))
-    x = x.to(mesh[0])
+    x = x.to(home(mesh))
     pb = -(-x.shape[1] // len(mesh))
-    parts = [chi2_device(x[:, s * pb:(s + 1) * pb].to(d, non_blocking=True),
+    parts = [chi2_device(x[:, s * pb:(s + 1) * pb].to(mesh[s],
+                                                        non_blocking=True),
                          y_mapped, n_classes)
-             for s, d in enumerate(mesh)]
+             for s in mesh.mine]
     return all_gather(parts, mesh).cpu().numpy()

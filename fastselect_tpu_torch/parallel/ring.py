@@ -31,8 +31,9 @@ import torch
 
 from ..ops import relief_discrete as rd
 from ..ops.relief import pair_weight_rules
-from .sharded import (_discrete_inputs, _round_up, _scalars, make_mesh,
-                      ppermute, psum, replicate)
+from ..utils.logging import phase
+from .sharded import (_discrete_inputs, _round_up, _scalars, home,
+                      make_mesh, plan_device, psum, replicate, ring_shift)
 
 
 def _ring_rule_groups(algo, use_star, n_classes):
@@ -101,7 +102,13 @@ def ring_relief_discrete_scores(
     When the class-sorted v2 layout applies, the rows are sorted by class
     and sweep 2 skips every (rule group, shard, ring step) whose entry in
     :func:`_ring_skip_table` is 0: the ring's form of v2's segment
-    restriction.
+    restriction.  Across processes each holds its own shards' blocks, and
+    a block passes to the next shard's process (``sharded.ring_shift``);
+    ``nb`` and ``ft`` come from n, p, the mesh's length and its devices'
+    type, so every process hands on blocks of one shape.  Sweep 1, the
+    rules and sweep 2 are ``phase``s (``ring.sweep1``, ``ring.rules``,
+    ``ring.sweep2``): logged at INFO, each timed between syncs at its
+    edges.
     """
     mesh = make_mesh(devices)
     ndev = len(mesh)
@@ -109,11 +116,12 @@ def ring_relief_discrete_scores(
                                            mesh)
     n, p = codes.shape
     y = np.asarray(y)
-    dev0 = mesh[0]
+    dev0 = home(mesh)
     _, ft = rd._discrete_tile_sizes(max(n // ndev, 1), p, n_states)
-    ft = rd._gemm_size(ft, dev0)
+    ft = rd._gemm_size(ft, plan_device(mesh))
     # a block of samples a shard, a GEMM's A on the card (>= 32 rows)
-    nb = rd._gemm_size(_round_up(-(-n // ndev), 8), dev0, rd._CUDA_MIN_ROWS)
+    nb = rd._gemm_size(_round_up(-(-n // ndev), 8), plan_device(mesh),
+                       rd._CUDA_MIN_ROWS)
     n_pad = nb * ndev
     p_pad = _round_up(p, ft)
 
@@ -130,49 +138,55 @@ def ring_relief_discrete_scores(
     yv[:n] = torch.as_tensor(y.astype(np.int64), device=dev0)
     valid = torch.zeros(n_pad, dtype=torch.float32, device=dev0)
     valid[:n] = 1.0
-    # each shard its own block; labels and validity (small) everywhere
-    blocks = [codes[s * nb:(s + 1) * nb].to(d, non_blocking=True)
-              for s, d in enumerate(mesh)]
+    # each of this process's shards its own block; labels and validity
+    # (small) on each of its devices
+    blocks = {s: codes[s * nb:(s + 1) * nb].to(mesh[s], non_blocking=True)
+              for s in mesh.mine}
     labels = {d: (yd, valid.to(d, non_blocking=True),
                   *_scalars(n, cp, d))
               for d, yd in replicate(yv, mesh).items()}
 
     def ring(step_fn):
         """Runs ``step_fn(me, owner, block in flight)`` for each ring step
-        and shard: at step t shard me holds the block of shard me - t,
-        passed on from shard me - 1."""
-        held = list(blocks)
+        and shard of this process: at step t shard me holds the block of
+        shard me - t, passed on from shard me - 1."""
+        held = dict(blocks)
         for t in range(ndev):
-            for me in range(ndev):
+            for me in held:
                 step_fn(me, (me - t) % ndev, held[me])
             if t + 1 < ndev:
-                held = [ppermute(held[me - 1], mesh[me])
-                        for me in range(ndev)]
+                held = ring_shift(held, mesh)
 
     # sweep 1: every shard's match rows against all samples
-    match = [torch.empty((nb, n_pad), dtype=torch.int32, device=d)
-             for d in mesh]
+    match = {s: torch.empty((nb, n_pad), dtype=torch.int32, device=mesh[s])
+             for s in blocks}
 
     def sweep1(me, owner, blk):
         match[me][:, owner * nb:(owner + 1) * nb] = rd._match_rows(
             blocks[me], blk, ft, n_states)
 
-    ring(sweep1)
-    rules = []
-    for me, d in enumerate(mesh):
-        y_all, v_all, n_real, cpd = labels[d]
-        rows = slice(me * nb, (me + 1) * nb)
-        D = (p_pad - match[me]).to(torch.float32)
-        match[me] = None
-        rules.append(pair_weight_rules(
-            D, y_all[rows], v_all[rows],
-            torch.arange(me * nb, (me + 1) * nb, device=d), y_all, v_all,
-            n_real, cpd, algo=algo, use_star=use_star, k=int(n_neighbors)))
-        del D
+    with phase("ring.sweep1", work=float(n_pad) * n_pad * p_pad):
+        ring(sweep1)
+    rules = {}
+    with phase("ring.rules"):
+        for me in blocks:
+            d = mesh[me]
+            y_all, v_all, n_real, cpd = labels[d]
+            rows = slice(me * nb, (me + 1) * nb)
+            D = (p_pad - match[me]).to(torch.float32)
+            match[me] = None
+            rules[me] = pair_weight_rules(
+                D, y_all[rows], v_all[rows],
+                torch.arange(me * nb, (me + 1) * nb, device=d), y_all,
+                v_all, n_real, cpd, algo=algo, use_star=use_star,
+                k=int(n_neighbors))
+            del D
 
     # sweep 2: contract the in-flight block's mask columns
-    parts = [torch.zeros(p_pad, dtype=torch.float64, device=d) for d in mesh]
-    rule_groups = groups or [(None, tuple(range(len(rules[0]))))]
+    parts = {s: torch.zeros(p_pad, dtype=torch.float64, device=mesh[s])
+             for s in blocks}
+    n_rules = len(next(iter(rules.values())))
+    rule_groups = groups or [(None, tuple(range(n_rules)))]
 
     def sweep2(me, owner, blk):
         cols = slice(owner * nb, (owner + 1) * nb)
@@ -183,6 +197,7 @@ def ring_relief_discrete_scores(
             parts[me] += rd._accumulate_discrete(blocks[me], blk, sub, ft,
                                                  n_states)
 
-    ring(sweep2)
-    scores = psum(parts, mesh)
+    with phase("ring.sweep2", work=float(n_pad) * n_pad * p_pad):
+        ring(sweep2)
+    scores = psum([parts[s] for s in sorted(parts)], mesh)
     return (scores[:p].to(torch.float32) / float(n)).cpu().numpy()

@@ -1,5 +1,6 @@
 """chip_smoke.py's mesh and profiling phases (21-22) rehearsed on the CPU at
-a small size, on a mesh of four CPU shards, with their referees.
+a small size, on a mesh of four CPU shards, with their referees, and its
+phase 23 as four CPU processes in a gloo group.
 
 On the CPU the kernel wrappers run their plain versions and count no
 launch; here they count as the kernels would, so that the phases' launch
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
+import torch_mp_workers as W
 from fastselect_tpu_torch import MultiSURF
 from fastselect_tpu_torch.models import mdr as mdr_mod
 from fastselect_tpu_torch.ops import relief as relief_mod
@@ -110,3 +112,54 @@ def test_mesh_chi2_and_profiling_rehearse(monkeypatch, cpu_card, tmp_path):
                                 tmp_path / "trace")
     assert timing.seconds > 0
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+
+
+def test_mesh_procs_rehearse(monkeypatch, cpu_card):
+    """Phase 23 at a small size: phase 21's layouts on four CPU shards in
+    one process, then four CPU processes in a gloo group on the same data,
+    each layout held to phase 21's result; the collectives in a one-rank
+    gloo group.  Every kernel's plain pass is counted in the processes."""
+    monkeypatch.setattr(cs, "MESH_RESULTS", {})
+    monkeypatch.setattr(rd, "_V2_MIN_N", 16)
+    monkeypatch.setattr(mdr_mod, "_COMBO_CHUNK", 64)
+    make = lambda: MultiSURF(n_features_to_select=10)  # noqa: E731
+    X_n, y_n = cs.make_classification(n_samples=300, n_features=40,
+                                      n_informative=10, random_state=0)
+    X_n = X_n.astype(np.float32)
+    single = make().fit(X_n, y_n).feature_importances_
+    cs.mesh_fit_phase(MESH, "mesh-large-n", make, X_n, y_n, single,
+                      (cs.psh, "sharded_relief_scores"), "cont",
+                      (cs.fit_tol(single), 0.0))
+    X_mf, y_mf = X_n.copy(), y_n
+    X_mf[:, :10] = np.random.RandomState(3).randint(0, 3, (300, 10))
+    X_mf[:, 1] = np.arange(300) % 150            # 150 states
+    est = MultiSURF(n_features_to_select=10, discrete_limit=200).fit(X_mf,
+                                                                     y_mf)
+    cs.mesh_mixed_phase(CPU, MESH, X_mf, y_mf, est)
+    X_snp, y_snp = cs.planted_genotypes(0, 64, 4096, 2)
+    single = make().fit(X_snp, y_snp).feature_importances_
+    cs.mesh_fit_phase(MESH, "mesh-snp", make, X_snp, y_snp, single,
+                      (cs.feature_shard,
+                       "feature_sharded_relief_discrete_scores"), "gemm",
+                      cs.DISC_TOL, warm=0)
+    X_v2, y_v2 = cs.planted_genotypes(2, 300, 64, 2)
+    make_v2 = lambda: MultiSURF(n_features_to_select=3,  # noqa: E731
+                                use_star=True)
+    single = make_v2().fit(X_v2, y_v2).feature_importances_
+    cs.mesh_fit_phase(MESH, "mesh-v2", make_v2, X_v2, y_v2, single,
+                      (cs.psh, "_sharded_discrete_v2"), "gemm", cs.DISC_TOL,
+                      warm=0)
+    cs.mesh_fit_phase(MESH, "mesh-ring", make_v2, X_v2, y_v2, single,
+                      (cs.parallel.ring, "_ring_skip_table"), "gemm",
+                      (cs.fit_tol(single), 0.0), warm=0,
+                      ring_bytes=X_v2.size - 1)
+    res, _ = cs.mdr_k3_phase(CPU, n=600, p=12)
+    cs.mesh_mdr_phase(CPU, MESH, res["X"], res["y"], res["planted"], res)
+    cs.mesh_stats_phase(CPU, MESH, n=120, p=1100)
+    launches = cs.mesh_procs_phase(
+        CPU, {"X_n": X_n, "y_n": y_n, "X_mf": X_mf, "y_mf": y_mf,
+              "X_snp": X_snp, "y_snp": y_snp, "X_v2": X_v2, "y_v2": y_v2,
+              "X_k3": res["X"], "y_k3": res["y"]},
+        stats_shape=(120, 1100), setup=W.rehearse_on_cpu)
+    assert set(launches) == set(rc.launches) and all(launches.values())
+    assert not torch.distributed.is_initialized()

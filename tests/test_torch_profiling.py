@@ -184,9 +184,12 @@ def test_initialize_raises_when_the_coordinator_is_unreachable():
 
 def test_parallel_and_utils_import_no_jax():
     """A fresh interpreter importing the port's parallel layer, profiling,
-    logging and chip_smoke.py imports neither jax nor fastselect_tpu."""
+    logging, chip_smoke.py and the multi-process tests' worker module (what
+    a spawned worker imports) imports neither jax nor fastselect_tpu."""
     code = ("import json, sys\n"
+            "sys.path.insert(0, 'tests')\n"
             "import chip_smoke\n"
+            "import torch_mp_workers\n"
             "import fastselect_tpu_torch.parallel\n"
             "import fastselect_tpu_torch.parallel.distributed\n"
             "import fastselect_tpu_torch.utils.profiling\n"

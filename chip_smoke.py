@@ -129,7 +129,26 @@ Phases, one or two lines each on stdout:
     Each prints its first and warm times, every process's peak memory and
     its collectives' calls, bytes and seconds; the ring's sweeps and rules
     are timed apart, here and in phase 21.  Then the collective helpers
-    run on the card in a one-rank NCCL group.
+    run on the card in a one-rank NCCL group;
+24. gwas, after mesh-snp: the discrete engine's GWAS-scale route.  The
+    pack and window functions on the card against their CPU versions byte
+    for byte (2- and 4-bit codes, ragged p, gathered rows); phase 7's
+    genotypes through the three forced routes (the sort budget at 0: the
+    host array staged packed, then promoted; the promote budget at 0 too:
+    gathered from packed codes; an int8 tensor on the card: gathered, bits
+    0), each held to phase 7 within ``GWAS_TOL`` with equal
+    ``top_features_``; gwas-promote, 6,000 x 2,600,000 host genotypes
+    (past the card's packed-staging gate, under its promote gate) through
+    ``MultiSURF().fit``: v2-promote, peak under 3 n p bytes, equal to the
+    resident route on the same array; gwas-gather, 8,192 x 5,000,000
+    genotypes drawn on the card straight into ``stage_codes_packed``
+    (10.2 GB packed; 41 GB as int8) and scored from them: v2-gather, peak
+    under n p / 2 bytes, column 0 first, and 2,049 features held to a
+    referee that shares only ``pair_weight_rules`` with the engine
+    (:func:`gwas_referee`).  Each route is read by spying on the engine's
+    layout, promote and gather functions (:class:`RouteSpy`), and none may
+    launch a fused kernel.  Its numbers go on the fits line and on a
+    ``gwas:`` line before the JSON summary.
 
 Phases 14-20 print their first and warm fit times, int8 GEMM operations
 (``relief_discrete.gemm_ops``) and rate, peak device memory, the host
@@ -241,6 +260,9 @@ CHI2_RTOL = 1e-4     # chi2 on the card against the float64 host path
 ORACLE_ATOL_MI = 1e-4  # MI and SU against tests/oracles.py (float64)
 PLAIN_ATOL_MI = 1e-6   # streamed statistics against the plain tables'
 MDR_BA_ATOL = 1e-6     # a fold winner's float32 BA against the float64 oracle
+# phase 24: a GWAS-scale route against another route or the referee
+# (atol: tests/test_engines.py:363,554,583; rtol for the larger scores)
+GWAS_TOL = (5e-7, 1e-6)
 # the bounds' card, an H100 SXM at 700 W (NVIDIA's data sheet)
 _H100 = PEAKS["NVIDIA H100 80GB HBM3"]
 INT8_PEAK_TOPS = _H100.int8_tops                # dense int8, TOP/s
@@ -1529,6 +1551,380 @@ def mdr_k4_phase(dev, n=1000, p=100):
 
 
 # ---------------------------------------------------------------------------
+# Phase 24: the GWAS-scale route (packed codes, v2-promote, v2-gather)
+# ---------------------------------------------------------------------------
+
+class RouteSpy:
+    """Within the block, the v2 routes the discrete engine took, in order:
+    'resident' (``_apply_layout``), 'promote' and 'gather-<bits>' (0 for
+    int8 codes)."""
+
+    NAMES = {"_apply_layout": "resident", "_promote_packed_sorted": "promote",
+             "_run_v2_gather": "gather"}
+
+    def __enter__(self):
+        self.seen = []
+        self.saved = {name: getattr(rd, name) for name in self.NAMES}
+        for name, route in self.NAMES.items():
+            setattr(rd, name, self._spy(name, route))
+        return self
+
+    def _spy(self, name, route):
+        def spied(*a, **k):
+            if route == "gather":
+                codes = a[0]
+                bits = codes.bits if isinstance(codes, rd.PackedCodes) else 0
+                self.seen.append(f"gather-{bits}")
+            else:
+                self.seen.append(route)
+            return self.saved[name](*a, **k)
+        return spied
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(rd, name, fn)
+
+
+def close(label, got, ref):
+    """Check got against ref within GWAS_TOL; the largest difference."""
+    atol, rtol = GWAS_TOL
+    err = float(np.abs(got - ref).max())
+    check(np.allclose(got, ref, atol=atol, rtol=rtol),
+          f"{label}: max |scores - reference| {err} past atol {atol}, "
+          f"rtol {rtol}")
+    return err
+
+
+def pack_checks(dev, n=300, p=1001, seed=24):
+    """The pack and window functions on the card against their CPU
+    versions, byte for byte: 2- and 4-bit codes, a ragged p, gathered
+    rows, a window of every kind (first, inner, the ragged last, widened
+    for the GEMM), the match counts of packed codes and the promote
+    layout.  Returns the number of tensors compared."""
+    rng = np.random.RandomState(seed)
+    compared = 0
+
+    def same(a, b, what):
+        nonlocal compared
+        check(a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()),
+              f"pack on the card: {what} differs from the CPU's")
+        compared += 1
+
+    for s in (3, 9):
+        codes = rng.randint(0, s, (n, p)).astype(np.int8)
+        host = rd.stage_codes_packed(codes, s)
+        card = rd.stage_codes_packed(codes, s, dev)
+        same(card.packed, host.packed, f"{s} states: packed bytes")
+        chunks = (torch.from_numpy(codes[r0:r0 + 64]).to(dev)
+                  for r0 in range(0, n, 64))
+        drawn = rd.stage_codes_packed(chunks, s, dev, shape=(n, p))
+        same(drawn.packed, host.packed, f"{s} states: packed by row chunks")
+        bits, per = host.bits, host.per
+        rows = rng.permutation(n)[:n // 16 * 8]   # the GEMM's multiple of 8
+        rows_h, rows_d = torch.from_numpy(rows), torch.from_numpy(rows).to(dev)
+        w = 32 * per
+        last = host.p_eff - per * 5
+        for off, width in ((0, w), (per * 7, w), (last, per * 5)):
+            for r_h, r_d in ((None, None), (rows_h, rows_d)):
+                ref = rd._codes_window(host.packed, off, width, bits, r_h)
+                same(rd._codes_window(card.packed, off, width, bits, r_d),
+                     ref, f"{s} states: window at {off} of {width}")
+                # widened for the GEMM on the card with code -1
+                win = rd._gemm_window(card.packed, off, width, bits, r_d)
+                check(dev.type != "cuda" or win.shape[1] % 8 == 0,
+                      f"{s} states: GEMM window width {win.shape[1]}")
+                same(win, torch.nn.functional.pad(
+                    ref, (0, win.shape[1] - width), value=-1),
+                     f"{s} states: GEMM window at {off} of {width}")
+        ci_h, ci_d = host.packed[rows_h[:40]], card.packed[rows_d[:40]]
+        same(rd._match_rows(ci_d, card.packed, 64, s, bits, rows_d),
+             rd._match_rows(ci_h, host.packed, 64, s, bits, rows_h),
+             f"{s} states: packed match counts")
+        perm = np.argsort(rng.randint(0, 2, n), kind="stable")
+        p_pad = rd._round_up(p, 128)
+        same(rd._promote_packed_sorted(card, perm, n + 12, p_pad),
+             rd._promote_packed_sorted(host, perm, n + 12, p_pad),
+             f"{s} states: promoted layout")
+    return compared
+
+
+def forced_fits(dev, label, X, y, route, warm=1):
+    """``MultiSURF(n_features_to_select=10).fit(X, y)``, first and ``warm``
+    more: each must take ``route`` and launch no fused kernel.  Returns
+    (estimator, seconds of each fit, int8 ops of the first, peak GB, the
+    first fit's ``relief_discrete`` phase records)."""
+    before = dict(rc.launches)
+    times, peaks, ops, records = [], [], 0, None
+    for i in range(1 + warm):
+        rd.reset_gemm_ops()
+        with RouteSpy() as spy, PhaseRecords("relief_discrete.",
+                                             on=not i) as rec:
+            est, sec, peak = timed_fit(dev, MultiSURF(n_features_to_select=10),
+                                       X, y)
+        if not i:
+            records = rec
+        check(spy.seen == [route], f"{label}: routes {spy.seen}, expected "
+              f"[{route!r}]")
+        ops = ops or rd.gemm_ops
+        times.append(sec)
+        peaks.append(peak)
+    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    check(not any(moved.values()), f"{label}: fused launches {moved}")
+    check(ops > 0, f"{label}: no int8 GEMM ran")
+    check(est.effective_backend_ == dev.type, f"{label}: effective_backend_")
+    return est, times, ops, max(peaks), records
+
+
+def headline_routes(dev, X, y, head):
+    """Phase 7's genotypes through the three forced routes, each held to
+    phase 7's scores and ``top_features_``: the host array with the sort
+    budget at 0 (staged packed, then promoted), the same with the promote
+    budget at 0 too (gathered from packed codes), and an int8 tensor on
+    the card with the sort budget at 0 (gathered, bits 0)."""
+    n, p = X.shape
+    y_enc = np.unique(y, return_inverse=True)[1]
+    ref = head["scores"]
+    out = {}
+    cases = (("snp-promote", "v2-promote", "host", "promote", False),
+             ("snp-gather-packed", "v2-gather", "host", "gather-2", True),
+             ("snp-gather-int8", "v2-gather", "tensor", "gather-0", False))
+    for label, tier, source, route, no_promote in cases:
+        data = X if source == "host" else torch.from_numpy(X).to(dev)
+
+        def run():
+            got = rd.discrete_tier(n, p, 3, y_enc, "multisurf", device=dev,
+                                   source=source)
+            check(got == tier, f"{label}: tier {got}, expected {tier}")
+            return forced_fits(dev, label, data, y, route)
+
+        def budgets():
+            if no_promote:
+                return with_threshold(rd, "_PACKED_PROMOTE_BUDGET", 0, run)
+            return run()
+        est, times, ops, peak, _ = with_threshold(
+            rd, "_DEVICE_SORT_BUDGET", 0, budgets)
+        del data
+        torch.cuda.empty_cache()
+        err = close(label, est.feature_importances_, ref)
+        check(np.array_equal(est.top_features_,
+                             np.argsort(ref)[::-1][:10]),
+              f"{label}: top_features_ {est.top_features_}")
+        print(f"{label}: MultiSURF X {n}x{p} int8 ({source}) tier {tier} "
+              f"route {route}; fit {times[0]:.4f} s, warm "
+              f"{', '.join(f'{t:.4f}' for t in times[1:])} s (phase 7: "
+              f"{head['first_s']:.4f} s, warm "
+              f"{', '.join(f'{t:.4f}' for t in head['warm_s'])} s); gemm_ops "
+              f"{ops:.4e}; peak {peak:.2f} GB; max |scores - phase 7| "
+              f"{err:.3e}; top_features_ equal", flush=True)
+        out[label] = dict(first_s=times[0], warm_s=times[1:], peak_gb=peak,
+                          err=err)
+    return out
+
+
+def balanced_labels(n, seed):
+    return np.random.RandomState(seed).permutation(np.arange(n) % 2)
+
+
+def gwas_promote_phase(dev, n=6000, p=2_600_000, seed=24):
+    """gwas-promote: (n, p) int8 host genotypes (drawn on the card, copied
+    to the host; column 0 = 2y) past the card's packed-staging gate and
+    under its promote gate.  ``MultiSURF(n_features_to_select=10).fit``
+    must take v2-promote and peak under 3 n p bytes, and equal the
+    resident route on the same array (the sort budget raised)."""
+    t0 = time.perf_counter()
+    y = balanced_labels(n, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Xd = torch.randint(0, 3, (n, p), generator=gen, device=dev,
+                       dtype=torch.int8)
+    Xd[:, 0] = torch.as_tensor(2 * y, dtype=torch.int8, device=dev)
+    X = Xd.cpu().numpy()
+    del Xd
+    torch.cuda.empty_cache()
+    data_s = time.perf_counter() - t0
+    tier = rd.discrete_tier(n, p, 3, y, "multisurf", device=dev)
+    check(tier == "v2-promote", f"gwas-promote: tier {tier}")
+    est, times, ops, peak, rec = forced_fits(dev, "gwas-promote", X, y,
+                                             "promote", warm=0)
+    check(peak * 1e9 < 3 * n * p,
+          f"gwas-promote: peak {peak:.2f} GB not under 3 n p")
+    check(est.top_features_[0] == 0, "gwas-promote: column 0 ranks first")
+    ref, ref_times, _, ref_peak, ref_rec = with_threshold(
+        rd, "_DEVICE_SORT_BUDGET", 1 << 62,
+        lambda: forced_fits(dev, "gwas-promote resident", X, y, "resident",
+                            warm=0))
+    del X
+    torch.cuda.empty_cache()
+    err = close("gwas-promote", est.feature_importances_,
+                ref.feature_importances_)
+    check(np.array_equal(est.top_features_, ref.top_features_),
+          f"gwas-promote: top_features_ {est.top_features_} vs "
+          f"{ref.top_features_}")
+    rate = ops / times[0] / 1e12
+    print(f"gwas-promote: MultiSURF X {n}x{p} int8 (host, drawn on the card "
+          f"in {data_s:.2f} s) tier v2-promote; fit {times[0]:.4f} s "
+          f"({rec.summary()}), gemm_ops {ops:.4e} ({rate:.1f} TOP/s), peak "
+          f"{peak:.2f} GB (3 n p = {3 * n * p / 1e9:.2f}); resident route "
+          f"{ref_times[0]:.4f} s ({ref_rec.summary()}), peak {ref_peak:.2f} "
+          f"GB; max |promote - resident| {err:.3e}; top_features_ equal",
+          flush=True)
+    return dict(first_s=times[0], gemm_ops=ops, tops=rate, peak_gb=peak,
+                phases=rec.records, resident_s=ref_times[0],
+                resident_phases=ref_rec.records, resident_peak_gb=ref_peak,
+                err=err)
+
+
+def plain_unpack(packed, per):
+    """The codes of packed bytes, ``per`` a byte, by integer arithmetic
+    alone (code i of a byte is (byte // base**i) % base)."""
+    base = 1 << (8 // per)
+    byt = packed.to(torch.int16)
+    vals = torch.stack([(byt // base ** i) % base for i in range(per)], -1)
+    return vals.reshape(byt.shape[0], -1).to(torch.int8)
+
+
+def gwas_referee(dev, pk, y, feats, ti, chunk=65536):
+    """The scores (divided by n) of the features ``feats`` of packed
+    codes, not through the engine.  The codes are unpacked a chunk of
+    features at a time by :func:`plain_unpack`, the match counts come from
+    an int8 one-hot GEMM of the referee's own, and D keeps the engine's
+    focal blocks of ``ti`` rows and its class-sorted column order, so that
+    the weight rules' float32 row statistics see the engine's D.  W comes
+    from ``pair_weight_rules``, the one function the referee shares with
+    the engine; the scores are sum_ij W_ij [x_if != x_jf] in float64."""
+    n, per = pk.n, pk.per
+    n_pad = -(-n // ti) * ti
+    perm = np.argsort(y, kind="stable")
+    rows = torch.as_tensor(perm, device=dev)
+    sel = np.asarray(sorted(feats))
+    xsel = torch.full((n_pad, len(sel)), -1, dtype=torch.int8, device=dev)
+    match = torch.zeros((n_pad, n_pad), dtype=torch.int32, device=dev)
+    for c0 in range(0, pk.p_eff, chunk):
+        c1 = min(c0 + chunk, pk.p_eff)
+        a = torch.full((n_pad, c1 - c0), -1, dtype=torch.int8, device=dev)
+        a[:n] = plain_unpack(pk.packed[:, c0 // per:c1 // per][rows], per)
+        hot = torch.cat([(a == s).to(torch.int8) for s in range(3)], 1)
+        hot = torch.nn.functional.pad(hot, (0, (-hot.shape[1]) % 8))
+        for b0 in range(0, n_pad, ti):
+            match[b0:b0 + ti] += torch._int_mm(hot[b0:b0 + ti], hot.t())
+        here = (sel >= c0) & (sel < c1)
+        xsel[:, torch.as_tensor(np.flatnonzero(here), device=dev)] = a[
+            :, torch.as_tensor(sel[here] - c0, device=dev)]
+    yv = torch.full((n_pad,), -1, dtype=torch.int64, device=dev)
+    yv[:n] = torch.as_tensor(np.asarray(y)[perm], device=dev)
+    valid = (yv >= 0).to(torch.float32)
+    n_real = torch.tensor(float(n), device=dev)
+    cp = torch.zeros(1, device=dev)
+    hot64 = [(xsel == s).to(torch.float64) for s in range(3)]
+    score = torch.zeros(len(sel), dtype=torch.float64, device=dev)
+    for b0 in range(0, n_pad, ti):
+        blk = slice(b0, b0 + ti)
+        D = (pk.p_eff - match[blk]).to(torch.float32)
+        rules = relief_mod.pair_weight_rules(
+            D, yv[blk], valid[blk], torch.arange(b0, b0 + ti, device=dev),
+            yv, valid, n_real, cp, algo="multisurf", use_star=False, k=0)
+        W = sum(r.double()[:, None] * m.double() for m, r in rules)
+        same = sum((h[blk] * (W @ h)).sum(0) for h in hot64)
+        score += W.sum() - same
+    return dict(zip(sel.tolist(), (score / n).cpu().numpy()))
+
+
+def gwas_gather_phase(dev, n=8192, p=5_000_000, seed=25, sample=1024,
+                      tail=1024, chunk_rows=256, ref_chunk=65536):
+    """gwas-gather: (n, p) genotypes (column 0 = 2y, balanced labels)
+    drawn on the card a chunk of rows at a time straight into
+    ``stage_codes_packed``, so the unpacked matrix never exists, then
+    scored by ``relief_discrete_scores`` from the packed codes: v2-gather,
+    peak memory over the fit under n p / 2 bytes, column 0 first, and
+    column 0, ``sample`` sampled features and the last ``tail`` held to
+    :func:`gwas_referee`."""
+    y = balanced_labels(n, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y_dev = torch.as_tensor(2 * y, dtype=torch.int8, device=dev)
+
+    def chunks():
+        for r0 in range(0, n, chunk_rows):
+            c = torch.randint(0, 3, (min(chunk_rows, n - r0), p),
+                              generator=gen, device=dev, dtype=torch.int8)
+            c[:, 0] = y_dev[r0:r0 + c.shape[0]]
+            yield c
+
+    t0 = time.perf_counter()
+    pk = rd.stage_codes_packed(chunks(), 3, dev, shape=(n, p))
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    tier = rd.discrete_tier(n, p, 3, y, "multisurf", device=dev,
+                            source="packed")
+    check(tier == "v2-gather", f"gwas-gather: tier {tier}")
+    layout, ti, ft = rd._tiles_and_layout(n, p, 3, y, "multisurf", None, dev)
+    blocks, windows = layout[4] // ti, -(-pk.p_eff // ft)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rd.reset_gemm_ops()
+    before = dict(rc.launches)
+    with RouteSpy() as spy, PhaseRecords("relief_discrete.gather") as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = rd.relief_discrete_scores(None, y, algo="multisurf", codes=pk,
+                                      n_states=3)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    ops = rd.gemm_ops
+    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    check(spy.seen == ["gather-2"], f"gwas-gather: routes {spy.seen}")
+    check(not any(moved.values()), f"gwas-gather: fused launches {moved}")
+    check(s.shape == (p,) and np.isfinite(s).all(),
+          f"gwas-gather: finite scores of shape ({p},)")
+    check(int(np.argmax(s)) == 0, "gwas-gather: column 0 ranks first")
+    check(peak < 0.5 * n * p, f"gwas-gather: peak {peak / 1e9:.2f} GB not "
+          f"under n p / 2 = {0.5 * n * p / 1e9:.2f} GB")
+    pass_s = {k: sum(sec for name, sec in rec.records
+                     if name.endswith(k)) for k in ("pass1", "pass2")}
+    rng = np.random.RandomState(seed)
+    feats = np.concatenate([[0], rng.choice(np.arange(1, p - tail), sample,
+                                            replace=False),
+                            np.arange(p - tail, p)])
+    t0 = time.perf_counter()
+    ref = gwas_referee(dev, pk, y, feats, ti, ref_chunk)
+    ref_s = time.perf_counter() - t0
+    del pk
+    torch.cuda.empty_cache()
+    err = close("gwas-gather", s[feats],
+                np.asarray([ref[f] for f in feats]))
+    rate = ops / fit_s / 1e12
+    print(f"gwas-gather: relief_discrete_scores(multisurf) on {n}x{p} "
+          f"genotypes packed on the card (drawn and packed in {data_s:.2f} "
+          f"s) tier v2-gather; fit {fit_s:.4f} s, gemm_ops {ops:.4e} "
+          f"({rate:.1f} TOP/s), {blocks} focal blocks of {ti}, {windows} "
+          f"windows of {ft} a pass and block, pass 1 {pass_s['pass1']:.4f} "
+          f"s, pass 2 with the rules {pass_s['pass2']:.4f} s; peak "
+          f"{peak / 1e9:.2f} GB (n p / 2 = {0.5 * n * p / 1e9:.2f}); column "
+          f"0 first; referee ({len(feats)} features, {ref_s:.2f} s) max "
+          f"|scores - referee| {err:.3e}", flush=True)
+    return dict(first_s=fit_s, gemm_ops=ops, tops=rate, peak_gb=peak / 1e9,
+                windows=windows, blocks=blocks, pass1_s=pass_s["pass1"],
+                pass2_s=pass_s["pass2"], err=err, data_s=data_s,
+                referee_s=ref_s)
+
+
+def gwas_phase(dev, X, y, head, sizes=None):
+    """Phase 24: the pack and window checks, the headline's forced routes,
+    gwas-promote and gwas-gather (``sizes``: their keyword arguments, for
+    a rehearsal at a small size)."""
+    sizes = sizes or {}
+    t0 = time.perf_counter()
+    compared = pack_checks(dev, **sizes.get("pack", {}))
+    print(f"gwas pack checks: {compared} tensors packed, unpacked, matched "
+          f"and promoted on the card equal the CPU's", flush=True)
+    res = {"routes": headline_routes(dev, X, y, head)}
+    res["gwas-promote"] = gwas_promote_phase(dev, **sizes.get("promote", {}))
+    res["gwas-gather"] = gwas_gather_phase(dev, **sizes.get("gather", {}))
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"gwas: phase {res['phase_s']:.2f} s", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # The multi-device layer on a mesh of shards (several on one card)
 # ---------------------------------------------------------------------------
 
@@ -2468,6 +2864,9 @@ def main():
             (feature_shard, "feature_sharded_relief_discrete_scores"),
             "gemm", DISC_TOL, warm=0)
     print(f"mesh-snp: phase {time.perf_counter() - t0:.2f} s", flush=True)
+    # 24. the GWAS-scale route: the headline's genotypes through the forced
+    # routes, then gwas-promote and gwas-gather at the card's own gates
+    gwas = gwas_phase(dev, X, y, head)
     X_snp, y_snp = X, y
     del X
 
@@ -2590,6 +2989,7 @@ def main():
     procs_s = time.perf_counter() - t0
     print(f"mesh-procs: phase {procs_s:.2f} s on {smi}", flush=True)
 
+    gp, gg = gwas["gwas-promote"], gwas["gwas-gather"]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_launches[name], "max_abs_err": err[name],
@@ -2621,9 +3021,17 @@ def main():
           + ", ".join(f"{k} {v if isinstance(v, float) else v[0]:.4f} s"
                       for k, v in mesh_s.items())
           + f" (first fits on {len(meshes[-1])} shards); mesh-procs phase "
-          f"{procs_s:.2f} s; timed_fit large-n {fit_timing.seconds:.4f} s"
+          f"{procs_s:.2f} s; timed_fit large-n {fit_timing.seconds:.4f} s; "
+          + ", ".join(f"{k} {v['first_s']:.4f} s (warm {v['warm_s'][0]:.4f} s)"
+                      for k, v in gwas["routes"].items())
+          + f"; gwas-promote {gp['first_s']:.4f} s (resident "
+          f"{gp['resident_s']:.4f} s), gwas-gather {gg['first_s']:.4f} s"
+          f" (gwas phase {gwas['phase_s']:.2f} s)"
           + f" on {smi}; chip_smoke {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    print("gwas: " + json.dumps({
+        "routes": gwas["routes"], "gwas-promote": gp, "gwas-gather": gg,
+        "phase_s": gwas["phase_s"]}), flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

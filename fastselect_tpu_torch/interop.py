@@ -17,6 +17,7 @@ from .models.multisurf import MultiSURF
 from .models.relieff import ReliefF
 from .models.surf import SURF
 from .models.turf import TuRF
+from .ops.relief_discrete import PackedCodes
 from .utils.preprocessing import FeatureAnalysis
 
 _ESTIMATORS = {"MultiSURF": MultiSURF, "SURF": SURF, "ReliefF": ReliefF,
@@ -50,6 +51,15 @@ def analysis_from_jax(fa, device="cpu") -> FeatureAnalysis:
         torch.as_tensor(np.asarray(fa.is_discrete, bool), device=device),
         torch.as_tensor(np.asarray(fa.recip, np.float32), device=device),
         codes=codes, n_states=int(fa.n_states))
+
+
+def packed_codes_from_jax(pk, device="cpu") -> PackedCodes:
+    """The port's PackedCodes, on ``device``, from a ``fastselect_tpu``
+    one: the same bytes (its packed array read as numpy), bits, n and p.
+    A consumed one raises its own ``RuntimeError``."""
+    pk.check_live()
+    packed = torch.as_tensor(np.array(pk.packed, np.uint8), device=device)
+    return PackedCodes(packed, int(pk.bits), int(pk.n), int(pk.p))
 
 
 def _params_from_jax(est) -> dict:

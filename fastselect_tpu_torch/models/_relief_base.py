@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.relief import relief_engine
+from ..ops.relief_discrete import keeps_host_codes
 from ..utils.backend import (default_device, resolve_backend,
                              tensor_backend, _VALID_BACKENDS)
 from ..utils.preprocessing import (MAX_STATES, FeatureAnalysis,
@@ -133,6 +134,10 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
         self.effective_backend_ = self._resolve_backend()
         self._device_ = None
         full = self._analysis(X, self._device())
+        if isinstance(full.codes, np.ndarray):
+            # kept on the host for the engine to stage: the scorer gathers
+            # columns on the device
+            full.codes = torch.as_tensor(full.codes).to(self._device())
         if full.codes is None and bool(full.is_discrete.any()):
             return None
         n = X.shape[0]
@@ -200,7 +205,11 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
         int8 (1 byte a value instead of 4), with n_states = max + 1 and
         recip all ones.  A tensor and one-byte X are range-checked on the
         device; wider host X is checked on the host and cast to int8
-        before the copy.  ``dev`` defaults to the fit's device.
+        before the copy.  Host X past the discrete engine's sort budget
+        (``relief_discrete.keeps_host_codes``) is checked on the host and
+        stays there as int8 codes: the engine copies it to the device
+        itself, packed where its v2 layout applies.  ``dev`` defaults to
+        the fit's device.
         """
         global uploads
         dev = self._device() if dev is None else dev
@@ -211,7 +220,8 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
             codes = X.to(dev)
         elif np.issubdtype(X.dtype, np.integer) and X.size > 0:
             codes = None
-            if X.dtype.itemsize == 1:
+            keep = keeps_host_codes(*X.shape, dev)
+            if X.dtype.itemsize == 1 and not keep:
                 codes = torch.as_tensor(X).to(dev)
                 uploads += 1
         else:
@@ -223,13 +233,17 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
         if mn < 0 or mx + 1 > min(int(self.discrete_limit), MAX_STATES):
             return None
         if codes is None:
-            codes = torch.as_tensor(X.astype(np.int8)).to(dev)
-            uploads += 1
+            codes = X.astype(np.int8, copy=False)
+            if not keep:
+                codes = torch.as_tensor(codes).to(dev)
+            uploads += 1  # where kept on the host, the engine's one copy
+        else:
+            codes = codes.to(torch.int8)
         p = X.shape[1]
         return FeatureAnalysis(
             torch.ones(p, dtype=torch.bool, device=dev),
             torch.ones(p, dtype=torch.float32, device=dev),
-            codes=codes.to(torch.int8), n_states=mx + 1)
+            codes=codes, n_states=mx + 1)
 
     def transform(self, X):
         """Reduce X to the selected top features."""

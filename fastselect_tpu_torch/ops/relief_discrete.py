@@ -36,12 +36,27 @@ dispatch) or streamed (one dispatch per block, summed in float64 on the
 host) because of jit dispatch limits.  Here each tier is one Python loop
 over focal blocks, and block partials are summed in float64 on the device.
 The score is divided by n by :func:`relief_discrete_scores`.
+
+Codes past the sort budget (GWAS scale: 2.2 n p bytes over
+``_DEVICE_SORT_BUDGET``, JAX's share of its 16 GiB chip scaled to the
+card) get no class-sorted copy.  Host codes go to the device bit-packed,
+2 or 4 bits a code (:class:`PackedCodes`, packed there a chunk of rows at
+a time), and v2 then takes one of two routes (:func:`_v2_route`):
+
+  v2-promote  packed codes up to ``_PACKED_PROMOTE_BUDGET`` are unpacked
+              class-sorted into the resident layout, freed, and scored as
+              resident codes;
+  v2-gather   packed codes past it, or int8 codes on the device past the
+              sort budget, stay as they are: each focal block gathers its
+              rows, and every window of both passes reads all rows in
+              class order through one index, unpacking as it reads.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..utils.logging import phase
 from ..utils.preprocessing import MAX_STATES, encode_columns
@@ -139,18 +154,187 @@ def encode_discrete(x, f_chunk: int | None = None):
 
 
 # ---------------------------------------------------------------------------
+# Bit-packed codes: 2 bits a code up to 4 states, 4 bits up to 16, packed
+# little-endian (byte j holds features j*per .. j*per + per - 1, per =
+# 8 // bits; trailing slots hold 0), the JAX package's ``_pack_codes``
+# layout byte for byte.  Packing runs on the codes' device.
+# ---------------------------------------------------------------------------
+
+# about this many bytes of unpacked codes per chunk of rows when codes are
+# staged packed or promoted
+_CHUNK_BYTES = 1 << 30
+
+
+def _pack_bits(n_states: int) -> int:
+    """Bits a packed code takes for ``n_states`` states; 0: not packable."""
+    return 2 if n_states <= 4 else 4 if n_states <= 16 else 0
+
+
+def _pack_codes(codes, n_states: int):
+    """``(packed uint8 (n, ceil(p / per)), bits)`` of (n, p) int8 codes on
+    their device, or None past 16 states."""
+    bits = _pack_bits(int(n_states))
+    if not bits:
+        return None
+    per = 8 // bits
+    n, p = codes.shape
+    pb = -(-p // per)
+    u = codes.to(torch.uint8)
+    if pb * per != p:
+        u = F.pad(u, (0, pb * per - p))
+    v = u.reshape(n, pb, per)
+    packed = v[:, :, 0].clone()
+    for i in range(1, per):
+        packed |= v[:, :, i] << (bits * i)
+    return packed, bits
+
+
+class PackedCodes:
+    """A code matrix held on a device bit-packed (JAX's ``PackedCodes``):
+    a quarter of a byte a genotype at 2 bits, so v2 can score codes whose
+    int8 matrix would crowd the device, unpacking windows as it reads them
+    (:func:`stage_codes_packed` makes one)."""
+
+    __slots__ = ("packed", "bits", "n", "p", "consumed")
+
+    def __init__(self, packed, bits: int, n: int, p: int):
+        self.packed = packed  # (n, ceil(p / (8 // bits))) uint8 tensor
+        self.bits = bits
+        self.n = n
+        self.p = p
+        self.consumed = False
+
+    def consume(self):
+        """Drop the packed buffer and mark this object spent: the promote
+        path calls this once it has unpacked the codes, so the packed and
+        the unpacked matrix are not held together for the fit.  The memory
+        is freed when no other reference to ``packed`` is left."""
+        self.packed = None
+        self.consumed = True
+
+    def check_live(self):
+        if self.consumed:
+            raise RuntimeError(
+                "this PackedCodes was consumed by a previous fit (its "
+                "packed HBM buffer was freed by the promote path); "
+                "re-stage the matrix with stage_codes_packed() before "
+                "fitting again")
+
+    @property
+    def per(self) -> int:
+        return 8 // self.bits
+
+    @property
+    def p_eff(self) -> int:
+        """Unpacked width (>= p; the overhang decodes to state-0 pad
+        features, which always match and score exactly 0)."""
+        return self.packed.shape[1] * self.per
+
+    @property
+    def shape(self) -> tuple:
+        return (self.n, self.p)
+
+
+def _int8_tensor(codes, device):
+    """Codes (numpy or tensor) as an int8 tensor on ``device``."""
+    if not isinstance(codes, torch.Tensor):
+        codes = torch.as_tensor(np.asarray(codes, np.int8))
+    return codes.to(device=device, dtype=torch.int8)
+
+
+def stage_codes_packed(codes, n_states: int, device=None, *, shape=None):
+    """A :class:`PackedCodes` on ``device`` when ``n_states`` allows it (at
+    most 16), else the codes as an int8 tensor there.
+
+    ``codes`` is an (n, p) numpy array or tensor (``device`` defaults to a
+    tensor's own, else the CPU), copied to the device and packed there a
+    chunk of rows at a time into one (n, ceil(p / per)) buffer, so the
+    unpacked matrix never exists whole on the device; or, with
+    ``shape=(n, p)``, an iterable of row chunks in order (arrays or
+    tensors, e.g. drawn on the device one at a time).
+    """
+    if shape is None:
+        n, p = codes.shape
+        if device is None and isinstance(codes, torch.Tensor):
+            device = codes.device
+        step = max(1, _CHUNK_BYTES // max(p, 1))
+        chunks = (codes[r0:r0 + step] for r0 in range(0, n, step))
+    else:
+        (n, p), chunks = shape, codes
+    device = torch.device(device or "cpu")
+    bits = _pack_bits(int(n_states))
+    if not bits:
+        return torch.cat([_int8_tensor(c, device) for c in chunks])
+    packed = torch.empty((n, -(-p // (8 // bits))), dtype=torch.uint8,
+                         device=device)
+    r0 = 0
+    for chunk in chunks:
+        c = _int8_tensor(chunk, device)
+        packed[r0:r0 + c.shape[0]] = _pack_codes(c, n_states)[0]
+        r0 += c.shape[0]
+    if r0 != n:
+        raise ValueError(f"row chunks hold {r0} rows, shape says {n}")
+    return PackedCodes(packed, bits, n, p)
+
+
+def _codes_window(codes_a, off, ft, bits, rows=None):
+    """(rows, ft) int8 codes of features [off, off + ft) in their natural
+    order, from int8 codes (``bits`` 0) or codes packed ``8 // bits`` a
+    byte (``off`` and ``ft`` whole bytes of them), of every row or of the
+    rows the index tensor ``rows`` names, in its order.
+
+    A packed window is the per shifts of each byte stacked on a last axis
+    and reshaped: one reshape on the card, where JAX unpacks in a plane
+    order to avoid a TPU lane shuffle."""
+    if bits == 0:
+        win = codes_a[:, off:off + ft]
+        return win if rows is None else win[rows]
+    per = 8 // bits
+    win = codes_a[:, off // per:(off + ft) // per]
+    if rows is not None:
+        win = win[rows]
+    shifts = torch.arange(0, 8, bits, dtype=torch.uint8, device=win.device)
+    out = (win[:, :, None] >> shifts).bitwise_and_((1 << bits) - 1)
+    return out.view(torch.int8).view(win.shape[0], -1)
+
+
+def _unpacked_width(codes_a, bits) -> int:
+    """Features in each row of int8 (``bits`` 0) or packed codes."""
+    return codes_a.shape[1] * (8 // bits if bits else 1)
+
+
+def _gemm_window(codes_a, off, w, bits, rows=None):
+    """:func:`_codes_window`, widened on CUDA to the GEMM's multiple of 8
+    with code -1, whose one-hot columns are all 0."""
+    win = _codes_window(codes_a, off, w, bits, rows)
+    wp = _gemm_size(w, win.device)
+    return win if wp == w else F.pad(win, (0, wp - w), value=-1)
+
+
+# ---------------------------------------------------------------------------
 # v1: unsorted rows
 # ---------------------------------------------------------------------------
 
-def _match_rows(ci, codes_a, ft, n_states):
-    """Pass 1: exact match counts (TI, n_pad), one
-    (TI, S*FT) x (n_pad, S*FT)^T product per feature tile."""
-    n_pad, p_pad = codes_a.shape
-    acc = torch.zeros((ci.shape[0], n_pad), dtype=_ACC_DTYPE,
+def _match_rows(ci, codes_a, ft, n_states, bits=0, rows=None):
+    """Pass 1: exact match counts (TI, rows), one (TI, S*w) x (rows, S*w)^T
+    product per window of ``ft`` features (the last one narrower on a
+    ragged feature axis).
+
+    ``ci`` and ``codes_a`` are int8 codes, or both packed (``bits``; ``ft``
+    whole bytes); ``rows`` picks and orders ``codes_a``'s rows.  The
+    counterpart of JAX's ``_match_rows`` and ``_match_rows_raw``.  Padded
+    and packed overhang features are state 0 on both sides: they match.
+    """
+    p_raw = _unpacked_width(codes_a, bits)
+    n_rows = codes_a.shape[0] if rows is None else rows.shape[0]
+    acc = torch.zeros((ci.shape[0], n_rows), dtype=_ACC_DTYPE,
                       device=ci.device)
-    for f0 in range(0, p_pad, ft):
-        acc += _dot_t(_onehot_flat(ci[:, f0:f0 + ft], n_states),
-                      _onehot_flat(codes_a[:, f0:f0 + ft], n_states))
+    for off in range(0, p_raw, ft):
+        w = min(ft, p_raw - off)
+        acc += _dot_t(
+            _onehot_flat(_gemm_window(ci, off, w, bits), n_states),
+            _onehot_flat(_gemm_window(codes_a, off, w, bits, rows),
+                         n_states))
     return acc
 
 
@@ -329,11 +513,18 @@ def _apply_layout(codes, y, perm, n_pad, p_pad):
     perm_t = torch.as_tensor(perm, device=dev)
     cpad = torch.zeros((n_pad, p_pad), dtype=torch.int8, device=dev)
     cpad[:n, :p] = codes[perm_t]
+    return (cpad, *_sorted_labels(y, perm, n_pad, dev))
+
+
+def _sorted_labels(y, perm, n_pad, dev):
+    """Labels (-1 past n) and validity (0 past n) of the class-sorted
+    layout, on ``dev``."""
+    n = len(perm)
     yv = torch.full((n_pad,), -1, dtype=torch.int64, device=dev)
     yv[:n] = torch.as_tensor(np.asarray(y, np.int64)[perm], device=dev)
     valid = torch.zeros(n_pad, dtype=torch.float32, device=dev)
     valid[:n] = 1.0
-    return cpad, yv, valid
+    return yv, valid
 
 
 def _plan_segments(algo, use_star, classes, focal_class_pos):
@@ -416,7 +607,7 @@ def _segment_operand(mat, s0, sl):
 
 
 def _accumulate_plan(ci, codes_a, rules, plan, segs_all, ft, n_states,
-                     use_star, onehot_t=None):
+                     use_star, onehot_t=None, bits=0, rows=None):
     """Segment-restricted pass 2: (p_pad,) float32 score partials.
 
     Each plan entry's operand is cut to its support segments and
@@ -424,11 +615,15 @@ def _accumulate_plan(ci, codes_a, rules, plan, segs_all, ft, n_states,
     contraction is n_pad across ALL entries (vs rules x n_pad for
     :func:`_accumulate_discrete`).  ``segs_all[pos]`` is (col0, ncols);
     ``onehot_t`` optionally supplies the precomputed transposed one-hot
-    (:func:`_build_onehot_t`).
+    (:func:`_build_onehot_t`).  The operands are cut once, outside the
+    window loop.  ``bits`` and ``rows`` read the windows as
+    :func:`_match_rows` does (the gather route: ``rows`` puts the rows in
+    class order, so the segments are the resident layout's; JAX's
+    ``_accumulate_plan_gather``), over the packed width when packed.
     """
     ti = ci.shape[0]
-    n_pad, p_pad = codes_a.shape
-    sft = n_states * ft
+    n_pad = codes_a.shape[0] if rows is None else rows.shape[0]
+    p_pad = _unpacked_width(codes_a, bits)
     dev = ci.device
 
     # int32 sums exactly when every entry is exact-int (SURF / SURF*,
@@ -450,8 +645,11 @@ def _accumulate_plan(ci, codes_a, rules, plan, segs_all, ft, n_states,
 
     parts = torch.empty(p_pad, dtype=torch.float32, device=dev)
     for t, f0 in enumerate(range(0, p_pad, ft)):
-        aa_t = (_onehot_flat_t(codes_a[:, f0:f0 + ft], n_states)
+        w = min(ft, p_pad - f0)
+        aa_t = (_onehot_flat_t(_gemm_window(codes_a, f0, w, bits, rows),
+                               n_states)
                 if onehot_t is None else onehot_t[t])
+        sft = aa_t.shape[0]
         p_sum = torch.zeros((ti, sft), dtype=acc_dtype, device=dev)
         for seg_ops, coeff in operands:
             q = torch.zeros((ti, sft), dtype=_ACC_DTYPE, device=dev)
@@ -461,23 +659,27 @@ def _accumulate_plan(ci, codes_a, rules, plan, segs_all, ft, n_states,
                 p_sum = p_sum + q.to(acc_dtype)
             else:
                 p_sum = p_sum + q.to(torch.float32) * coeff[:, None]
-        parts[f0:f0 + ft] = _tile_part(total_w, p_sum, ci[:, f0:f0 + ft],
-                                       n_states)
+        parts[f0:f0 + w] = _tile_part(
+            total_w, p_sum, _gemm_window(ci, f0, w, bits), n_states)[:w]
     return parts
 
 
 def _block_scores_v2(ci, yi, vi, iid, codes_a, yv_a, valid_a, n_real,
                      class_probs, *, algo, use_star, k, ft, n_states,
-                     plan, segs_all, match=None, onehot_t=None):
-    """Scores (p_pad,) float32 contributed by ONE focal block (v2)."""
+                     plan, segs_all, match=None, onehot_t=None, bits=0,
+                     rows=None):
+    """Scores (p_pad,) float32 contributed by ONE focal block (v2); with
+    ``bits`` and ``rows`` over codes read as :func:`_match_rows` reads
+    them (JAX's ``_relief_discrete_block_v2g``)."""
     if match is None:
-        match = _match_rows(ci, codes_a, ft, n_states)
-    D = (codes_a.shape[1] - match).to(torch.float32)
+        match = _match_rows(ci, codes_a, ft, n_states, bits, rows)
+    D = (_unpacked_width(codes_a, bits) - match).to(torch.float32)
     rules = pair_weight_rules(
         D, yi, vi, iid, yv_a, valid_a, n_real, class_probs,
         algo=algo, use_star=use_star, k=k)
     return _accumulate_plan(ci, codes_a, rules, plan, segs_all, ft,
-                            n_states, use_star, onehot_t=onehot_t)
+                            n_states, use_star, onehot_t=onehot_t,
+                            bits=bits, rows=rows)
 
 
 def _build_onehot(cpad, ft, n_states):
@@ -559,24 +761,158 @@ def _v2_layout(y, n, ti, algo, class_probs):
     return layout
 
 
-def _run_v2(codes, y, layout, n, p, n_states, class_probs,
-            *, algo, use_star, k, ti, ft):
-    """Class-sorted v2 on the codes' device: (p_pad,) float64 scores.
+# Past 2.2x this many bytes of int8 codes a class-sorted copy cannot sit
+# beside them on the device: host codes are staged packed, and v2 reads
+# device codes in place (the gather route).  Packed codes of at most
+# _PACKED_PROMOTE_BUDGET codes are promoted to the resident layout instead.
+# Both are JAX's values for its 16 GiB chip, kept so that tests patch them
+# alike in both packages; on a CUDA device :func:`_budget` scales them by
+# its memory.
+_DEVICE_SORT_BUDGET = 6 << 30
+_PACKED_PROMOTE_BUDGET = 7 << 30
+_JAX_CHIP_BYTES = 16 << 30
 
-    In the symmetric zone the one-hot is built once for pass 1, which
-    comes from one match matrix, and once transposed for pass 2;
-    otherwise every focal block runs its own pass 1 and builds each
-    tile's one-hot."""
-    classes, perm, segments, block_class, n_pad = layout
-    p_pad = _round_up(p, ft)
-    cpad, yv, valid = _apply_layout(codes, y[:n], perm, n_pad, p_pad)
-    dev = cpad.device
+
+def _budget(value, device) -> float:
+    """``value`` as a share of the JAX package's 16 GiB chip, scaled to a
+    CUDA device's memory (read at each call); as it is on the CPU, and for
+    planning on a host without CUDA."""
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return value
+    total = torch.cuda.get_device_properties(device).total_memory
+    return value * total / _JAX_CHIP_BYTES
+
+
+def _past_sort_budget(n: int, p: int, device) -> bool:
+    return 2.2 * n * p > _budget(_DEVICE_SORT_BUDGET, device)
+
+
+def keeps_host_codes(n: int, p: int, device) -> bool:
+    """Whether a fit hands (n, p) host codes to :func:`relief_discrete_scores`
+    as they are, for it to stage them packed where v2 applies, rather than
+    copying them to ``device`` first: at v2's sample count and past the
+    sort budget."""
+    return n >= _V2_MIN_N and _past_sort_budget(n, p, device)
+
+
+def _v2_route(n: int, p: int, ft: int, device, per: int = 0) -> str:
+    """How v2 reads (n, p) codes on ``device``: packed ones (``per`` codes
+    a byte) 'promote' or 'gather', int8 ones 'gather' or 'resident' (JAX's
+    ``_run_v2`` choice)."""
+    if per:
+        if n * p <= _budget(_PACKED_PROMOTE_BUDGET, device) and ft % per == 0:
+            return "promote"
+        return "gather"
+    return ("gather" if _past_sort_budget(n, p, device) and p >= ft
+            else "resident")
+
+
+def _v2_context(layout, n, class_probs, dev, algo, use_star):
+    """(plan of each focal block's class position, segments with the full
+    span last, class_probs and n as tensors on ``dev``) of a v2 run."""
+    classes, _, segments, block_class, n_pad = layout
     cls_t = tuple(int(c) for c in classes)
     plan_of = {pos: _plan_segments(algo, use_star, cls_t, pos)
                for pos in set(block_class)}
     segs_all = list(segments) + [(0, n_pad)]  # last position = full span
     cp = torch.as_tensor(np.asarray(class_probs, np.float32), device=dev)
     n_real = torch.tensor(float(n), dtype=torch.float32, device=dev)
+    return plan_of, segs_all, cp, n_real
+
+
+def _promote_packed_sorted(codes, perm, n_pad, p_pad):
+    """Packed codes unpacked into ``_apply_layout``'s class-sorted,
+    zero-padded (n_pad, p_pad) int8 layout (``p_pad`` whole packed bytes:
+    overhang slots hold 0), a chunk of rows at a time, so the unpacked
+    matrix exists once."""
+    dev = codes.packed.device
+    cpad = torch.zeros((n_pad, p_pad), dtype=torch.int8, device=dev)
+    perm_t = torch.as_tensor(perm, device=dev)
+    step = max(1, _CHUNK_BYTES // codes.p_eff)
+    for r0 in range(0, len(perm), step):
+        rows = perm_t[r0:r0 + step]
+        cpad[r0:r0 + len(rows), :codes.p_eff] = _codes_window(
+            codes.packed, 0, codes.p_eff, codes.bits, rows)
+    return cpad
+
+
+def _run_v2_gather(codes, y, layout, n, n_states, class_probs,
+                   *, algo, use_star, k, ti, ft):
+    """v2 with no sorted or padded copy of the codes: (p_raw,) float64
+    scores of int8 codes, or of packed codes, which stay packed.
+
+    Each focal block gathers its rows (packed: ti * p / per bytes), and
+    every window of both passes reads all rows in class order through one
+    index (padded positions read row 0 at weight 0), unpacking as it
+    reads.  D, the weight rules and the plan's segments are then the
+    resident route's, so are the scores but for the float32 sums of a
+    narrower last window.  Pass 1 and pass 2 (with the rules) of every
+    block are phases: ``relief_discrete.gather_pass1`` and ``_pass2``."""
+    _, perm, _, block_class, n_pad = layout
+    packed = isinstance(codes, PackedCodes)
+    codes_a, bits = (codes.packed, codes.bits) if packed else (codes, 0)
+    per = 8 // bits if bits else 1
+    if ft % per:
+        raise ValueError(f"a feature tile of {ft} codes is not whole bytes "
+                         f"of {per} packed codes")
+    dev = codes_a.device
+    rows = torch.zeros(n_pad, dtype=torch.int64, device=dev)
+    rows[:n] = torch.as_tensor(perm, device=dev)
+    yv, valid = _sorted_labels(y[:n], perm, n_pad, dev)
+    plan_of, segs_all, cp, n_real = _v2_context(layout, n, class_probs, dev,
+                                                algo, use_star)
+    p_raw = _unpacked_width(codes_a, bits)
+    work = float(ti) * n_pad * p_raw
+    total = torch.zeros(p_raw, dtype=torch.float64, device=dev)
+    for b, pos in enumerate(block_class):
+        blk = slice(b * ti, (b + 1) * ti)
+        ci = codes_a[rows[blk]]
+        with phase("relief_discrete.gather_pass1", work=work):
+            match = _match_rows(ci, codes_a, ft, n_states, bits, rows)
+        with phase("relief_discrete.gather_pass2", work=work):
+            total += _block_scores_v2(
+                ci, yv[blk], valid[blk],
+                torch.arange(b * ti, (b + 1) * ti, device=dev),
+                codes_a, yv, valid, n_real, cp, algo=algo,
+                use_star=use_star, k=k, ft=ft, n_states=n_states,
+                plan=plan_of[pos], segs_all=segs_all, match=match,
+                bits=bits, rows=rows)
+        del ci, match  # freed before the next block's rows are gathered
+    return total
+
+
+def _run_v2(codes, y, layout, n, p, n_states, class_probs,
+            *, algo, use_star, k, ti, ft):
+    """Class-sorted v2 on the codes' device: (>= p,) float64 scores.
+
+    ``codes`` is an int8 tensor or a :class:`PackedCodes`, read as
+    :func:`_v2_route` says: in place (:func:`_run_v2_gather`), or from a
+    class-sorted, zero-padded copy (``_apply_layout``; promoted packed
+    codes are unpacked into it and then consumed).  In the symmetric zone
+    the one-hot of that copy is built once for pass 1, which comes from
+    one match matrix, and once transposed for pass 2; otherwise every
+    focal block runs its own pass 1 and builds each tile's one-hot."""
+    packed = isinstance(codes, PackedCodes)
+    if packed:
+        codes.check_live()
+    route = _v2_route(n, p, ft, (codes.packed if packed else codes).device,
+                      codes.per if packed else 0)
+    if route == "gather":
+        return _run_v2_gather(codes, y, layout, n, n_states, class_probs,
+                              algo=algo, use_star=use_star, k=k, ti=ti,
+                              ft=ft)
+    _, perm, _, block_class, n_pad = layout
+    p_pad = _round_up(p, ft)
+    if route == "promote":
+        cpad = _promote_packed_sorted(codes, perm, n_pad, p_pad)
+        codes.consume()
+        yv, valid = _sorted_labels(y[:n], perm, n_pad, cpad.device)
+    else:
+        cpad, yv, valid = _apply_layout(codes, y[:n], perm, n_pad, p_pad)
+    dev = cpad.device
+    plan_of, segs_all, cp, n_real = _v2_context(layout, n, class_probs, dev,
+                                                algo, use_star)
 
     onehot_t = match = None
     if _sym_zone(n_pad, p, n_states):
@@ -607,14 +943,29 @@ def _tiles_and_layout(n, p, n_states, y, algo, class_probs, device,
     return layout, ti, _gemm_size(ft or ft0, device)
 
 
+def _stages_packed(layout, n, p, ft, device) -> bool:
+    """Whether host codes go to ``device`` packed (JAX's staging choice)."""
+    return layout is not None and _past_sort_budget(n, p, device) and p >= ft
+
+
 def discrete_tier(n, p, n_states, y, algo, class_probs=None,
-                  device="cpu", ti=None) -> str:
-    """The tier, 'v1', 'v2' or 'v2-sym', that :func:`relief_discrete_scores`
-    takes for these arguments."""
-    layout, _, _ = _tiles_and_layout(n, p, n_states, y, algo, class_probs,
-                                     torch.device(device), ti)
+                  device="cpu", ti=None, source="host") -> str:
+    """The tier, 'v1', 'v2', 'v2-sym', 'v2-gather' or 'v2-promote', that
+    :func:`relief_discrete_scores` takes for these arguments, with codes
+    given as ``source``: 'host' (a numpy array), 'tensor' (an int8 tensor
+    on ``device``) or 'packed' (a :class:`PackedCodes`)."""
+    device = torch.device(device)
+    layout, _, ft = _tiles_and_layout(n, p, n_states, y, algo, class_probs,
+                                      device, ti)
     if layout is None:
         return "v1"
+    bits = 0
+    if source == "packed" or (source == "host" and _stages_packed(
+            layout, n, p, ft, device)):
+        bits = _pack_bits(n_states)
+    route = _v2_route(n, p, ft, device, 8 // bits if bits else 0)
+    if route != "resident":
+        return f"v2-{route}"
     return "v2-sym" if _sym_zone(layout[4], p, n_states) else "v2"
 
 
@@ -636,25 +987,39 @@ def relief_discrete_scores(
 
     ``codes``/``n_states`` can be passed directly (e.g. int8 genotype
     matrices that are already 0..S-1) to skip the encoding.  ``codes`` is
-    a numpy array (copied once to ``device``, default CPU) or a tensor,
+    a numpy array, copied once to ``device`` (default CPU): as int8, or
+    packed (:func:`stage_codes_packed`) where v2 applies past the sort
+    budget; or a tensor, or a :class:`PackedCodes` (``n_states`` given),
     scored on its own device.  Without codes, X (numpy or tensor) is
     encoded on ``device`` (default: X's own).  ``ti``/``ft`` override the
     focal-block and feature-tile sizes.
     """
     n, p = (x if codes is None else codes).shape
+    y = np.asarray(y)
+    host = codes is not None and not isinstance(codes, (torch.Tensor,
+                                                        PackedCodes))
     if codes is None:
         with phase("relief_discrete.encode", work=n * p):
             codes, n_unique, _ = encode_columns(_float_tensor(x, device))
         n_states = int(n_unique.max())
-    elif not isinstance(codes, torch.Tensor):
+    elif isinstance(codes, PackedCodes):
+        codes.check_live()
+        if n_states is None:
+            raise ValueError("packed codes need n_states")
+    elif host:
+        codes = torch.from_numpy(np.asarray(codes, np.int8))
+    if isinstance(codes, torch.Tensor):
+        codes, n_states = int8_codes(codes, n_states)
+    dev = (codes.packed.device if isinstance(codes, PackedCodes)
+           else torch.device(device or "cpu") if host else codes.device)
+    layout, ti, ft = _tiles_and_layout(n, p, n_states, y, algo, class_probs,
+                                       dev, ti, ft)
+    if host:
         with phase("relief_discrete.h2d", work=n * p):
-            codes = torch.as_tensor(np.asarray(codes, np.int8), device=device)
-    codes, n_states = int8_codes(codes, n_states)
-    dev = codes.device
-    y = np.asarray(y)
+            codes = (stage_codes_packed(codes, n_states, dev)
+                     if _stages_packed(layout, n, p, ft, dev)
+                     else codes.to(dev))
 
-    layout, ti, ft = _tiles_and_layout(n, p, n_states, y, algo,
-                                       class_probs, dev, ti, ft)
     if class_probs is None:
         class_probs = np.zeros((1,), np.float32)
     if layout is not None:
@@ -666,6 +1031,8 @@ def relief_discrete_scores(
                              algo=algo, use_star=use_star,
                              k=int(n_neighbors), ti=ti, ft=ft)
             return (scores[:p].to(torch.float32) / float(n)).cpu().numpy()
+    if isinstance(codes, PackedCodes):
+        codes = _codes_window(codes.packed, 0, codes.p_eff, codes.bits)[:, :p]
     cpad, yv, valid, _ = pack_discrete(codes, y, n_states, ti=ti, ft=ft)
     with phase(f"relief_discrete.engine[{algo}]", work=float(n) * n * p):
         scores = relief_discrete_core(

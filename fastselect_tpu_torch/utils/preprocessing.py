@@ -87,6 +87,8 @@ class FeatureAnalysis:
     x_dev: torch.Tensor | None = None  # (n, p) float32 X, unless all-discrete
     codes: torch.Tensor | None = None  # (n, p) int8 state codes, X with a
     #                                    discrete column of <= MAX_STATES
+    #                                    (a host int8 array where a fit
+    #                                    leaves GWAS-scale codes there)
     n_states: int = 0                 # largest cardinality of a discrete column
 
 

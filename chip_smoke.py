@@ -148,7 +148,22 @@ Phases, one or two lines each on stdout:
     (:func:`gwas_referee`).  Each route is read by spying on the engine's
     layout, promote and gather functions (:class:`RouteSpy`), and none may
     launch a fused kernel.  Its numbers go on the fits line and on a
-    ``gwas:`` line before the JSON summary.
+    ``gwas:`` line before the JSON summary;
+25. staging, after mesh-procs: the host-to-device staging layer
+    (``utils/staging.py``).  ``MultiSURF().fit`` on the upstream
+    reference's p >> n point, 100 x 500,000 float64 host X, at
+    ``transfer_dtype`` None, 'float32', 'float16' and 'bfloat16', first
+    and two warm, each launching the continuous kernels: the float32 fit
+    (and None where it resolves to float32) equal to today's one-shot copy
+    (the stager's gate raised) bit for bit, each half-width fit equal to
+    the float32 fit of X rounded on the host by the same cast bit for
+    bit; each with its peak memory and, from one more fit, the stager's
+    ``staging.`` phase records (host cast, copy, analysis).  Then the
+    stager's chunk widths (``CHUNK_SWEEP``) timed on the staged analysis
+    of that X and the upload of phase 7's int8 codes, against one
+    pageable copy of them, and the copy seconds of phases 5 (large-p, now
+    staged), 7 and 24 (gwas-promote's packed staging).  Its numbers go on
+    the fits line and on a ``staging:`` line before the JSON summary.
 
 Phases 14-20 print their first and warm fit times, int8 GEMM operations
 (``relief_discrete.gemm_ops``) and rate, peak device memory, the host
@@ -222,8 +237,9 @@ from fastselect_tpu_torch.ops.chi2_op import chi2_stats_exact
 from fastselect_tpu_torch.ops.relief import relief_engine
 from fastselect_tpu_torch.parallel import feature_shard
 from fastselect_tpu_torch.parallel import sharded as psh
-from fastselect_tpu_torch.utils import profiling
-from fastselect_tpu_torch.utils.preprocessing import analyze_features
+from fastselect_tpu_torch.utils import profiling, staging
+from fastselect_tpu_torch.utils.preprocessing import (analyze_features,
+                                                      analyze_features_staged)
 from fastselect_tpu_torch.utils.profiling import PEAKS
 from fastselect_tpu_torch.utils.sklearn_compat import (HAVE_SKLEARN,
                                                        StratifiedKFold)
@@ -275,6 +291,8 @@ MESH_RESULTS: dict = {}
 # phase 23: processes sharing the first card, and their hard deadline
 MESH_PROCS = 4
 MESH_PROCS_DEADLINE_S = 300.0
+# phase 25: the stager's chunk widths timed (bytes a staged chunk)
+CHUNK_SWEEP = tuple(mb << 20 for mb in (8, 16, 32, 64, 128, 256))
 # the card's name and power limit (nvidia-smi), set by main
 SMI = "not read"
 
@@ -2539,6 +2557,152 @@ def mesh_procs_phase(dev, data, stats_shape=(2000, 5000), setup=None):
 
 
 # ---------------------------------------------------------------------------
+# Phase 25: the staging layer (pinned, pipelined host-to-device copies)
+# ---------------------------------------------------------------------------
+
+def synced_s(fn):
+    """(fn(), seconds) with the card synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def host_rounded(X32, td):
+    """float32 X rounded on the host by the stager's cast to ``td``: numpy
+    for float16, torch (through float32, as ml_dtypes) for bfloat16."""
+    if td == "float16":
+        return X32.astype(np.float16).astype(np.float32)
+    return torch.from_numpy(X32).to(torch.bfloat16).float().numpy()
+
+
+def staging_fits(dev, X, y, td, warm=2):
+    """``MultiSURF(transfer_dtype=td).fit``, first and ``warm`` more, then
+    one more with the ``staging.`` phase records: (estimator, seconds,
+    peak GB of each, records).  Each fit must launch the continuous
+    kernels."""
+    make = lambda: MultiSURF(n_features_to_select=10,  # noqa: E731
+                             transfer_dtype=td)
+    times, peaks = [], []
+    for _ in range(1 + warm):
+        before = dict(rc.launches)
+        est, sec, peak = timed_fit(dev, make(), X, y)
+        for name in ("relief_pass1_cont", "relief_pass2_cont"):
+            check(rc.launches[name] > before[name],
+                  f"staging {td}: the fit launched {name}")
+        times.append(sec)
+        peaks.append(peak)
+    with PhaseRecords("staging.") as rec:
+        timed_fit(dev, make(), X, y)
+    return est, times, peaks, rec
+
+
+def staging_phase(dev, X_p, y_p, X_snp, gwas, shape=(100, 500000)):
+    """Phase 25: the staging layer.  ``MultiSURF().fit`` on the reference's
+    p >> n point, 100 x 500,000 float64 host X, at every
+    ``transfer_dtype``: the float32 fit equal to today's one-shot copy
+    (the stager's gate raised) bit for bit, each half-width fit equal to a
+    float32 fit of X rounded on the host by the same cast; then the
+    stager's chunk widths timed on that X and on phase 7's codes (against
+    one pageable copy), and the copy seconds of phases 5, 7 and 24."""
+    t0 = time.perf_counter()
+    X, y = make_classification(n_samples=shape[0], n_features=shape[1],
+                               random_state=25)
+    X32 = X.astype(np.float32)
+    n, p = X.shape
+    data_s = time.perf_counter() - t0
+    ref, one_s, one_peak = with_threshold(
+        _relief_base, "_STAGED_MIN_ELEMS", 1 << 62,
+        lambda: timed_fit(dev, MultiSURF(n_features_to_select=10), X, y))
+    check(not hasattr(ref, "transfer_dtype_"),
+          "staging: the one-shot fit set transfer_dtype_")
+    out = {"one_shot_s": one_s, "one_shot_peak_gb": one_peak, "fits": {}}
+    rounded = {}
+    auto = ("float16" if _relief_base._AUTO_HALF_WIDTH
+            and X.size >= _relief_base._AUTO_F16_MIN_ELEMS and p >= 4 * n
+            else "float32")
+    for td in (None, "float32", "float16", "bfloat16"):
+        est, times, peaks, rec = staging_fits(dev, X, y, td)
+        used = est.transfer_dtype_
+        check(used == (td or auto), f"staging {td}: transfer_dtype_ {used}")
+        s = est.feature_importances_
+        check(s.shape == (p,) and np.isfinite(s).all(),
+              f"staging {td}: finite scores of shape ({p},)")
+        if used == "float32":
+            want, held = ref, "the one-shot fit"
+        else:
+            if used not in rounded:
+                rounded[used] = MultiSURF(
+                    n_features_to_select=10, transfer_dtype="float32").fit(
+                        host_rounded(X32, used), y)
+            want, held = rounded[used], f"a float32 fit of X rounded to {used}"
+        check(np.array_equal(s, want.feature_importances_)
+              and np.array_equal(est.top_features_, want.top_features_),
+              f"staging {td}: scores equal to {held} bit for bit")
+        out["fits"][str(td)] = dict(
+            used=used, first_s=times[0], warm_s=times[1:],
+            peak_gb=max(peaks), records=rec.records)
+        print(f"staging {td}: MultiSURF X {n}x{p} float64 staged as "
+              f"{used}; fit {times[0]:.4f} s, warm "
+              f"{', '.join(f'{t:.4f}' for t in times[1:])} s; peak "
+              f"{max(peaks):.2f} GB; {rec.summary()}; scores equal to "
+              f"{held} bit for bit (one-shot fit {one_s:.4f} s, peak "
+              f"{one_peak:.2f} GB)", flush=True)
+
+    # chunk widths: the staged analysis of X (float32 and float16) and the
+    # upload of phase 7's int8 codes, each the best of three
+    sweep = {}
+    for cb in CHUNK_SWEEP:
+        def runs():
+            row = {}
+            for td in ("float32", "float16"):
+                row[f"analysis-{td}"] = min(synced_s(
+                    lambda: analyze_features_staged(
+                        X32, 10, transfer_dtype=td, device=dev))[1]
+                    for _ in range(3))
+            row["codes"] = min(synced_s(
+                lambda: staging.upload(X_snp, dev, torch.int8))[1]
+                for _ in range(3))
+            return row
+        sweep[f"{cb / (1 << 20):g}"] = with_threshold(
+            staging, "_CHUNK_BYTES", cb, runs)
+        torch.cuda.empty_cache()
+    pageable = min(synced_s(lambda: torch.from_numpy(X_snp).to(dev))[1]
+                   for _ in range(3))
+    torch.cuda.empty_cache()
+    print("staging chunk widths (MB: analysis float32, float16, codes s): "
+          + "; ".join(f"{mb}: {r['analysis-float32']:.4f}, "
+                      f"{r['analysis-float16']:.4f}, {r['codes']:.4f}"
+                      for mb, r in sweep.items())
+          + f"; phase 7's codes ({X_snp.nbytes / 1e9:.2f} GB) in one "
+          f"pageable copy {pageable:.4f} s", flush=True)
+    out.update(sweep=sweep, codes_pageable_s=pageable)
+
+    # the copy seconds of phases 5, 7 and 24 at the stager's own width
+    with PhaseRecords("staging.") as rec_p:
+        _, fit_p, _ = timed_fit(dev, MultiSURF(n_features_to_select=10),
+                                X_p, y_p)
+    with PhaseRecords("staging.") as rec_c:
+        _, up_s = synced_s(lambda: staging.upload(X_snp, dev, torch.int8))
+    promote = dict(gwas["gwas-promote"]["phases"])
+    out.update(large_p=dict(fit_s=fit_p, records=rec_p.records),
+               codes=dict(upload_s=up_s, records=rec_c.records),
+               gwas_promote_h2d_s=promote.get("relief_discrete.h2d"))
+    print(f"staging copies: large-p (phase 5) fit {fit_p:.4f} s "
+          f"({rec_p.summary()}; one pageable copy before the stager: warm "
+          f"fits 19.8-26.5 ms, PERF.md); phase 7's codes staged "
+          f"{up_s:.4f} s ({rec_c.summary()}; one pageable copy here "
+          f"{pageable:.4f} s); gwas-promote's packed staging "
+          f"{promote.get('relief_discrete.h2d')} s (from pageable memory "
+          f"before the stager: 2.54-2.83 s, PERF.md); data drawn in "
+          f"{data_s:.2f} s; phase 25 {time.perf_counter() - t0:.2f} s on "
+          f"{SMI}", flush=True)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The kernels alone
 # ---------------------------------------------------------------------------
 
@@ -2784,10 +2948,10 @@ def main():
                                    n_informative=10, random_state=0)
     X_n = X_n.astype(np.float32)
     large_n, fit_n = fit_phase(dev, "large-n", X_n, y_n, cont, warm=2)
-    X, y = make_classification(n_samples=100, n_features=100000,
-                               random_state=0)
-    _, fit_p = fit_phase(dev, "large-p", X.astype(np.float32), y, cont,
-                         warm=3)
+    X_p, y_p = make_classification(n_samples=100, n_features=100000,
+                                   random_state=0)
+    X_p = X_p.astype(np.float32)
+    _, fit_p = fit_phase(dev, "large-p", X_p, y_p, cont, warm=3)
     X, y = make_classification(n_samples=2000, n_features=200,
                                n_informative=10, random_state=1)
     X = X.astype(np.float32)
@@ -2985,9 +3149,13 @@ def main():
         "X_n": X_n, "y_n": y_n, "X_mf": X_mf, "y_mf": y_mf,
         "X_snp": X_snp, "y_snp": y_snp, "X_v2": X_v2, "y_v2": y_v2,
         "X_k3": mdr_k3["X"], "y_k3": mdr_k3["y"]})
-    del X_snp
     procs_s = time.perf_counter() - t0
     print(f"mesh-procs: phase {procs_s:.2f} s on {smi}", flush=True)
+
+    # 25. the staging layer: the p >> n point at every transfer_dtype, the
+    # stager's chunk widths, the copy seconds of phases 5, 7 and 24
+    staged = staging_phase(dev, X_p, y_p, X_snp, gwas)
+    del X_snp, X_p
 
     gp, gg = gwas["gwas-promote"], gwas["gwas-gather"]
     summary = {"kernels": [
@@ -3026,12 +3194,18 @@ def main():
                       for k, v in gwas["routes"].items())
           + f"; gwas-promote {gp['first_s']:.4f} s (resident "
           f"{gp['resident_s']:.4f} s), gwas-gather {gg['first_s']:.4f} s"
-          f" (gwas phase {gwas['phase_s']:.2f} s)"
+          f" (gwas phase {gwas['phase_s']:.2f} s); staging 100x500000 "
+          + ", ".join(f"{td} first {v['first_s']:.4f} s, warm "
+                      f"{min(v['warm_s']):.4f} s"
+                      for td, v in staged["fits"].items())
+          + f" (one-shot {staged['one_shot_s']:.4f} s; phase 25 "
+          f"{staged['phase_s']:.2f} s)"
           + f" on {smi}; chip_smoke {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print("gwas: " + json.dumps({
         "routes": gwas["routes"], "gwas-promote": gp, "gwas-gather": gg,
         "phase_s": gwas["phase_s"]}), flush=True)
+    print("staging: " + json.dumps(staged), flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -64,7 +64,6 @@ def packed_codes_from_jax(pk, device="cpu") -> PackedCodes:
 
 def _params_from_jax(est) -> dict:
     params = est.get_params(deep=False)
-    params.pop("transfer_dtype", None)
     params["backend"] = _BACKENDS[str(params["backend"]).lower()]
     return params
 
@@ -72,10 +71,11 @@ def _params_from_jax(est) -> dict:
 def estimator_from_jax(est):
     """A fitted port ``MultiSURF``, ``SURF``, ``ReliefF``, ``TuRF``,
     ``mRMR``, ``CFS`` or ``MDR`` from the fitted ``fastselect_tpu``
-    estimator of the same name: the same parameters (``transfer_dtype``, a
-    TPU staging option, is not ported) and fitted state, so ``transform``
-    selects the same columns (an MDR's ``predict`` predicts the same).  A
-    JAX ``backend='tpu'`` becomes ``'auto'``.  ``effective_backend_``
+    estimator of the same name: the same parameters (a Relief estimator's
+    ``transfer_dtype`` included: the port stages a CUDA fit's host X at
+    it) and fitted state, so ``transform`` selects the same columns (an
+    MDR's ``predict`` predicts the same).  A JAX ``backend='tpu'`` becomes
+    ``'auto'``.  ``effective_backend_``
     keeps saying where the scores were computed.  A
     TuRF's Relief estimator becomes the port's, with its parameters; any
     other estimator is kept as it is.  Its fitted state is carried by

@@ -4,10 +4,15 @@ Counterpart of ``fastselect_tpu/models/_relief_base.py``: subclasses
 define ``_algo_name`` and ``_score``.  A fit validates X on the host,
 uploads it to the compute device once as float32, analyses its columns
 there, and scores that same tensor, the state codes the analysis made of
-it, or both (mixed data).  Small non-negative integer X (genotypes) skips
-the float copy: it is uploaded once as int8 codes.  A ``torch.Tensor`` X
-is checked and scored on its own device, with no host round trip
-(the counterpart of the JAX package's device-array fit).
+it, or both (mixed data).  On a CUDA device a host X of at least
+``_STAGED_MIN_ELEMS`` values is staged a chunk of columns at a time
+through pinned buffers and a copy stream, and analysed as it arrives
+(``utils/preprocessing.analyze_features_staged``), at the staging dtype
+``transfer_dtype`` asks for.  Small non-negative integer X (genotypes)
+skips the float copy: it is uploaded once as int8 codes, through the same
+stager.  A ``torch.Tensor`` X is checked and scored on its own device,
+with no host round trip (the counterpart of the JAX package's
+device-array fit).
 """
 
 from __future__ import annotations
@@ -19,15 +24,37 @@ from ..ops.relief import relief_engine
 from ..ops.relief_discrete import keeps_host_codes
 from ..utils.backend import (default_device, resolve_backend,
                              tensor_backend, _VALID_BACKENDS)
+from ..utils import staging
 from ..utils.preprocessing import (MAX_STATES, FeatureAnalysis,
-                                   analyze_features)
+                                   analyze_features, analyze_features_staged,
+                                   resolve_transfer_dtype)
 from ..utils.sklearn_compat import (BaseEstimator, TransformerMixin,
                                     check_is_fitted, validate_data)
 from ..utils.validation import check_min_samples, resolve_n_features_to_select
 
 # copies of a host X to a fit's device since the last reset: one per fit,
 # two where one-byte integer X fails the code range and goes again as float
+# or where X staged at half width is scored from a float32 copy
 uploads = 0
+
+# Host X of at least this many values goes to a CUDA fit's device through
+# the staged analysis (JAX's gate for its device analysis sweep); the
+# tests add 'cpu' to the device types to rehearse it.
+_STAGED_MIN_ELEMS = 1 << 22
+_STAGED_DEVICE_TYPES = ("cuda",)
+# JAX's auto half-width staging threshold: float X of at least this many
+# values with p >= 4n stages at float16 where the auto rule holds.
+_AUTO_F16_MIN_ELEMS = 1 << 24
+# Whether that auto rule holds (only CUDA fits stage).  It does not on the
+# H100: at 100 x 500,000 numpy's float16 cast cost more host time than
+# the halved copy saved (chip_smoke.py phase 25, PERF.md), so None stages
+# float32 there.
+_AUTO_HALF_WIDTH = False
+# Half-width staged X is scored only where JAX's would be: every column
+# continuous, n at most JAX's PALLAS_MAX_N and n p float32 bytes within
+# its _XDEV_BUDGET_BYTES; elsewhere the engine scores a float32 copy.
+_HALF_WIDTH_MAX_N = 131072
+_HALF_WIDTH_MAX_BYTES = 4 << 30
 
 
 def reset_upload_count() -> None:
@@ -45,6 +72,7 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
         if self.backend not in _VALID_BACKENDS:
             raise ValueError(
                 "backend must be one of 'auto', 'cuda', 'gpu', or 'cpu'")
+        resolve_transfer_dtype(getattr(self, "transfer_dtype", None))
         check_min_samples(n_samples, self._algo_name)
         return resolve_n_features_to_select(
             self.n_features_to_select, n_features)
@@ -124,20 +152,22 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
         """``scorer(active) -> scores`` equal to the
         ``feature_importances_`` of ``fit(X[:, active], y)``, for TuRF's
         rounds; X and y are validated host arrays.  X goes to the fit's
-        device and is analysed there once; each call gathers the active
-        columns of that analysis on the device (a column's discreteness,
-        range and state codes do not depend on the other columns) and
-        scores them as ``fit`` would, engine choice included.  None when
+        device, at float32 whatever ``transfer_dtype`` says (as JAX's
+        fast scorers stage it), and is analysed there once; each call
+        gathers the active columns of that analysis on the device (a
+        column's discreteness, range and state codes do not depend on
+        the other columns) and scores them as ``fit`` would, engine
+        choice included.  None when
         a discrete column has more than ``MAX_STATES`` states: that
         analysis keeps no state codes to gather.
         """
         self.effective_backend_ = self._resolve_backend()
         self._device_ = None
-        full = self._analysis(X, self._device())
+        full = self._analysis(X, self._device(), exact=True)
         if isinstance(full.codes, np.ndarray):
             # kept on the host for the engine to stage: the scorer gathers
             # columns on the device
-            full.codes = torch.as_tensor(full.codes).to(self._device())
+            full.codes = staging.to_device(full.codes, self._device())
         if full.codes is None and bool(full.is_discrete.any()):
             return None
         n = X.shape[0]
@@ -181,20 +211,73 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
     def _score(self, X, y, analysis, n_select):  # pragma: no cover
         raise NotImplementedError
 
-    def _analysis(self, X, dev: torch.device) -> FeatureAnalysis:
+    def _analysis(self, X, dev: torch.device,
+                  exact: bool = False) -> FeatureAnalysis:
         """The analysis a fit on ``dev`` makes of validated X: the integer
         fast path's, else per-feature discreteness, ranges and state codes
-        in float32 on ``dev`` (a host X is uploaded here, once)."""
+        in float32 on ``dev`` (a host X is uploaded here, once).
+
+        A host X of at least ``_STAGED_MIN_ELEMS`` values on a CUDA device
+        is staged at :meth:`_staging_dtype` (float32 where ``exact``, and
+        ``transfer_dtype_`` is then left alone) and analysed as it
+        arrives; smaller X, and every CPU fit, take one copy.  X staged at
+        half width is scored where JAX scores it: every column continuous,
+        at most ``_HALF_WIDTH_MAX_N`` samples and ``_HALF_WIDTH_MAX_BYTES``
+        float32 bytes; elsewhere the engine scores a float32 copy of X and
+        only the analysis (discreteness, ranges, codes) is the rounded
+        values'."""
         global uploads
         analysis = self._int_fast_analysis(X, dev)
         if analysis is not None:
             return analysis
         if isinstance(X, torch.Tensor):
-            x_dev = X.to(dtype=torch.float32)
-        else:
-            x_dev = torch.tensor(X, dtype=torch.float32, device=dev)
+            return analyze_features(X.to(dtype=torch.float32),
+                                    self.discrete_limit)
+        uploads += 1
+        if dev.type not in _STAGED_DEVICE_TYPES or X.size < _STAGED_MIN_ELEMS:
+            return analyze_features(
+                torch.tensor(X, dtype=torch.float32, device=dev),
+                self.discrete_limit)
+        if not np.issubdtype(X.dtype, np.floating):
+            X = X.astype(self._validate_dtype)   # as JAX validates it
+        td = "float32" if exact else self._staging_dtype(X)
+        analysis = analyze_features_staged(
+            X, self.discrete_limit, transfer_dtype=td, device=dev)
+        n, p = X.shape
+        half = resolve_transfer_dtype(td) != torch.float32
+        scored = (not bool(analysis.is_discrete.any())
+                  and n <= _HALF_WIDTH_MAX_N
+                  and n * p * 4 <= _HALF_WIDTH_MAX_BYTES)
+        if half and analysis.x_dev is not None and not scored:
+            analysis.x_dev = staging.upload(X, dev, torch.float32)
             uploads += 1
-        return analyze_features(x_dev, self.discrete_limit)
+        return analysis
+
+    def _staging_dtype(self, X) -> str | None:
+        """Host-to-device staging dtype of a CUDA fit (JAX's rule).
+
+        An explicit ``transfer_dtype`` always wins (pass 'float32' to
+        force exact staging).  With the default ``None``, large float
+        matrices in the p >> n regime auto-stage at float16 where the
+        rule holds (``_AUTO_HALF_WIDTH``): half-width staging halves the
+        bytes copied at a ~1e-3 relative cost in score precision
+        (integer-valued discrete columns up to 2048 are exact in f16, so
+        discreteness detection is unaffected for ordinary coded data);
+        elsewhere None resolves to 'float32'.  The policy is recorded in
+        the fitted ``transfer_dtype_`` attribute."""
+        td = getattr(self, "transfer_dtype", None)
+        if td is None and _AUTO_HALF_WIDTH:
+            n, p = X.shape
+            if (X.size >= _AUTO_F16_MIN_ELEMS and p >= 4 * n
+                    and np.issubdtype(X.dtype, np.floating)):
+                td = "float16"
+                if getattr(self, "verbose", False):
+                    print("Auto-selected float16 H2D staging for this "
+                          "transfer-bound p >> n fit (~1e-3 relative "
+                          "score cost; pass transfer_dtype='float32' "
+                          "for exact staging).")
+        self.transfer_dtype_ = td or "float32"
+        return td
 
     def _int_fast_analysis(self, X, dev=None) -> FeatureAnalysis | None:
         """Encode-free analysis of integer X (an array or a tensor) with
@@ -204,8 +287,9 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
         raw values serve as state codes: they reach the device once as
         int8 (1 byte a value instead of 4), with n_states = max + 1 and
         recip all ones.  A tensor and one-byte X are range-checked on the
-        device; wider host X is checked on the host and cast to int8
-        before the copy.  Host X past the discrete engine's sort budget
+        device; wider host X is checked on the host and cast to int8 as it
+        is staged (``utils/staging.py``: pinned and pipelined on a CUDA
+        device).  Host X past the discrete engine's sort budget
         (``relief_discrete.keeps_host_codes``) is checked on the host and
         stays there as int8 codes: the engine copies it to the device
         itself, packed where its v2 layout applies.  ``dev`` defaults to
@@ -222,7 +306,7 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
             codes = None
             keep = keeps_host_codes(*X.shape, dev)
             if X.dtype.itemsize == 1 and not keep:
-                codes = torch.as_tensor(X).to(dev)
+                codes = staging.to_device(X, dev)
                 uploads += 1
         else:
             return None
@@ -233,9 +317,8 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
         if mn < 0 or mx + 1 > min(int(self.discrete_limit), MAX_STATES):
             return None
         if codes is None:
-            codes = X.astype(np.int8, copy=False)
-            if not keep:
-                codes = torch.as_tensor(codes).to(dev)
+            codes = (X.astype(np.int8, copy=False) if keep
+                     else staging.to_device(X, dev, torch.int8))
             uploads += 1  # where kept on the host, the engine's one copy
         else:
             codes = codes.to(torch.int8)

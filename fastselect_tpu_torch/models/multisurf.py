@@ -35,6 +35,15 @@ class MultiSURF(BaseReliefSelector):
         Accepted for API compatibility with the reference.
     verbose : bool, default=False
         Print progress messages during fit.
+    transfer_dtype : {None, 'float32', 'float16', 'bfloat16'}, default=None
+        Staging dtype of the host-to-device copy of a host X of at least
+        2**22 values on CUDA fits (smaller X, tensors and CPU fits take
+        one float32 copy).  'float16'/'bfloat16' halve the bytes copied,
+        at a ~1e-3 relative cost in score precision.  The default None
+        stages exact float32: JAX's auto rule (float16 for float X of at
+        least 2**24 values with p >= 4n) did not make such a fit faster
+        on an H100, where the host's float16 cast outweighs the halved
+        copy.  The dtype actually used is recorded in ``transfer_dtype_``.
 
     Attributes
     ----------
@@ -44,6 +53,9 @@ class MultiSURF(BaseReliefSelector):
     is_discrete_ : ndarray of shape (n_features,)
     effective_backend_ : str
         'cuda' or 'cpu': where the scores were computed.
+    transfer_dtype_ : str
+        The staging dtype a CUDA fit of a host X of at least 2**22 values
+        used (set by such a fit only).
     """
 
     _algo_name = "MultiSURF"
@@ -57,6 +69,7 @@ class MultiSURF(BaseReliefSelector):
         discrete_limit: int = 10,
         n_jobs: int = -1,
         verbose: bool = False,
+        transfer_dtype: str | None = None,
     ):
         self.n_features_to_select = n_features_to_select
         self.backend = backend
@@ -64,6 +77,7 @@ class MultiSURF(BaseReliefSelector):
         self.discrete_limit = discrete_limit
         self.n_jobs = n_jobs
         self.verbose = verbose
+        self.transfer_dtype = transfer_dtype
 
     def _score(self, X, y, analysis, n_select):
         # Labels only ever enter the kernel through y_i == y_j comparisons

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import staging
 from ..utils.logging import phase
 from ..utils.preprocessing import MAX_STATES, encode_columns
 from .relief import pair_weight_rules
@@ -251,14 +252,23 @@ def stage_codes_packed(codes, n_states: int, device=None, *, shape=None):
     chunk of rows at a time into one (n, ceil(p / per)) buffer, so the
     unpacked matrix never exists whole on the device; or, with
     ``shape=(n, p)``, an iterable of row chunks in order (arrays or
-    tensors, e.g. drawn on the device one at a time).
+    tensors, e.g. drawn on the device one at a time).  Host codes (a
+    numpy array or a CPU tensor) go through the process's stager
+    (``utils/staging.py``: pinned buffers and a copy stream on a CUDA
+    device), so packing one chunk overlaps copying the next.
     """
     if shape is None:
         n, p = codes.shape
         if device is None and isinstance(codes, torch.Tensor):
             device = codes.device
-        step = max(1, _CHUNK_BYTES // max(p, 1))
-        chunks = (codes[r0:r0 + step] for r0 in range(0, n, step))
+        device = torch.device(device or "cpu")
+        if isinstance(codes, torch.Tensor) and codes.device.type != "cpu":
+            step = max(1, _CHUNK_BYTES // max(p, 1))
+            chunks = (codes[r0:r0 + step] for r0 in range(0, n, step))
+        else:
+            host = codes.numpy() if isinstance(codes, torch.Tensor) else codes
+            chunks = staging.stager(device).stage(
+                staging.row_chunks(host, torch.int8), torch.int8)
     else:
         (n, p), chunks = shape, codes
     device = torch.device(device or "cpu")
@@ -987,12 +997,13 @@ def relief_discrete_scores(
 
     ``codes``/``n_states`` can be passed directly (e.g. int8 genotype
     matrices that are already 0..S-1) to skip the encoding.  ``codes`` is
-    a numpy array, copied once to ``device`` (default CPU): as int8, or
-    packed (:func:`stage_codes_packed`) where v2 applies past the sort
-    budget; or a tensor, or a :class:`PackedCodes` (``n_states`` given),
-    scored on its own device.  Without codes, X (numpy or tensor) is
-    encoded on ``device`` (default: X's own).  ``ti``/``ft`` override the
-    focal-block and feature-tile sizes.
+    a numpy array, copied once to ``device`` (default CPU) through the
+    process's stager: as int8, or packed (:func:`stage_codes_packed`)
+    where v2 applies past the sort budget; or a tensor, or a
+    :class:`PackedCodes` (``n_states`` given), scored on its own device.
+    Without codes, X (numpy or tensor) is encoded on ``device`` (default:
+    X's own).  ``ti``/``ft`` override the focal-block and feature-tile
+    sizes.
     """
     n, p = (x if codes is None else codes).shape
     y = np.asarray(y)
@@ -1014,11 +1025,11 @@ def relief_discrete_scores(
            else torch.device(device or "cpu") if host else codes.device)
     layout, ti, ft = _tiles_and_layout(n, p, n_states, y, algo, class_probs,
                                        dev, ti, ft)
-    if host:
+    if host:   # through the stager, packed or as they are
         with phase("relief_discrete.h2d", work=n * p):
             codes = (stage_codes_packed(codes, n_states, dev)
                      if _stages_packed(layout, n, p, ft, dev)
-                     else codes.to(dev))
+                     else staging.to_device(codes.numpy(), dev))
 
     if class_probs is None:
         class_probs = np.zeros((1,), np.float32)

@@ -45,8 +45,13 @@ def phase(name: str, work: float | None = None):
         yield
     finally:
         _synchronize()
-        dt = time.perf_counter() - t0
-        if work is not None and dt > 0:
-            logger.info("%s: %.4fs (%.3e work/s)", name, dt, work / dt)
-        else:
-            logger.info("%s: %.4fs", name, dt)
+        log_seconds(name, time.perf_counter() - t0, work)
+
+
+def log_seconds(name: str, seconds: float, work: float | None = None) -> None:
+    """Log one phase record at INFO, as :func:`phase` does: for steps
+    timed otherwise (``utils/staging.py`` sums its steps over a loop)."""
+    if work is not None and seconds > 0:
+        logger.info("%s: %.4fs (%.3e work/s)", name, seconds, work / seconds)
+    else:
+        logger.info("%s: %.4fs", name, seconds)

@@ -14,14 +14,21 @@ among the column's unique values): the discrete engine scores all-discrete
 X from the int8 codes alone, and the hybrid engine reads the discrete
 columns of mixed X from them.  :class:`FeatureAnalysis` keeps X as
 ``x_dev`` whenever a column is continuous, so the engine scores the same
-tensor.
+tensor.  A host array goes to a CUDA device through
+:func:`analyze_features_staged`: staged a chunk of columns at a time
+(``utils/staging.py``), at float32 or half width, and analysed chunk by
+chunk on the device as it arrives.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
+
+from .logging import phase
+from .staging import Times, column_chunk, stager
 
 # Sort at most this many elements at a time: a column sort holds the
 # sorted values and their int64 indices, about 3x the chunk's bytes.
@@ -122,10 +129,76 @@ def analyze_features(x: torch.Tensor, discrete_limit: int) -> FeatureAnalysis:
     discrete columns (1 when there is none).
     """
     x = x.to(torch.float32)
-    codes, n_unique, ranges = encode_columns(x)
+    return _analysis(x, *encode_columns(x), discrete_limit)
+
+
+def _analysis(x, codes, n_unique, ranges, discrete_limit) -> FeatureAnalysis:
+    """:func:`analyze_features`'s result from float32 X and every column's
+    codes, unique count and range."""
     is_disc = n_unique <= discrete_limit
     n_states = int(n_unique[is_disc].max()) if bool(is_disc.any()) else 1
     if not bool(is_disc.any()) or n_states > MAX_STATES:
         codes = None
     x_dev = None if codes is not None and bool(is_disc.all()) else x
     return FeatureAnalysis(is_disc, _recip(ranges), x_dev, codes, n_states)
+
+
+_TRANSFER_DTYPES = {None: torch.float32, "float32": torch.float32,
+                    "float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
+def resolve_transfer_dtype(transfer_dtype: str | None) -> torch.dtype:
+    """The dtype of the host-to-device staging copy (default: exact
+    float32); JAX's ``_resolve_transfer_dtype`` with torch's dtypes."""
+    if isinstance(transfer_dtype, (str, type(None))) \
+            and transfer_dtype in _TRANSFER_DTYPES:
+        return _TRANSFER_DTYPES[transfer_dtype]
+    raise ValueError(
+        "transfer_dtype must be None, 'float32', 'float16', or "
+        f"'bfloat16', got {transfer_dtype!r}")
+
+
+def analyze_features_staged(x: np.ndarray, discrete_limit: int, *,
+                            transfer_dtype: str | None, device,
+                            f_chunk: int | None = None) -> FeatureAnalysis:
+    """:func:`analyze_features` of host array ``x`` staged onto ``device``
+    at ``transfer_dtype``: the counterpart of the JAX package's
+    ``analyze_features_device``.
+
+    ``x`` goes to the device ``f_chunk`` columns at a time through the
+    process's stager (pinned buffers and a copy stream on a CUDA device,
+    ``utils/staging.py``), each chunk cast on the host from ``x``'s own
+    values once, as JAX casts its staged chunks.  On the device each chunk
+    is upcast to float32 and written into one (n, p) float32 tensor, and
+    its columns' unique counts, ranges and state codes come from one sort
+    of it, while the host casts the next chunk.  Half-width staging
+    (``'float16'``, ``'bfloat16'``) halves the bytes copied; X, the
+    ranges, the discreteness and the codes are then those of the rounded
+    values.  The result equals JAX's: ``is_discrete``, ``recip``,
+    ``n_states``, the discrete columns' codes and, where JAX keeps it,
+    ``x_dev``, bit for bit.  As :func:`analyze_features`, ``x_dev`` is
+    kept unless every column is discrete with state codes.
+    """
+    dtype = resolve_transfer_dtype(transfer_dtype)
+    device = torch.device(device)
+    n, p = x.shape
+    if f_chunk is None:   # sized by the float32 chunk the device works on
+        f_chunk = column_chunk(n, torch.float32, _SORT_CHUNK_ELEMS)
+    starts = range(0, p, f_chunk)
+    x_dev = torch.empty((n, p), dtype=torch.float32, device=device)
+    codes = torch.empty((n, p), dtype=torch.int8, device=device)
+    n_unique = torch.empty(p, dtype=torch.int64, device=device)
+    ranges = torch.empty(p, dtype=torch.float32, device=device)
+    times = Times(device)
+    with phase("staging.analyze", work=n * p):
+        chunks = stager(device).stage(
+            (x[:, f0:f0 + f_chunk] for f0 in starts), dtype, times)
+        for f0, xc in zip(starts, chunks):
+            with times.device("analysis"):
+                xc = xc.to(torch.float32)
+                sl = slice(f0, f0 + xc.shape[1])
+                x_dev[:, sl] = xc
+                n_unique[sl], ranges[sl], codes[:, sl] = _column_stats(
+                    xc, with_codes=True)
+        times.log()
+        return _analysis(x_dev, codes, n_unique, ranges, discrete_limit)

@@ -98,8 +98,7 @@ def test_estimator_from_jax_roundtrip(rng):
                                    use_star=True).fit(X, y)
     port = estimator_from_jax(ref)
     assert isinstance(port, fastselect_tpu_torch.MultiSURF)
-    assert port.get_params() == {k: v for k, v in ref.get_params().items()
-                                 if k != "transfer_dtype"}
+    assert port.get_params() == ref.get_params()
     assert_array_equal(port.transform(X), ref.transform(X))
     assert_array_equal(port.feature_importances_, ref.feature_importances_)
     refit = fastselect_tpu_torch.MultiSURF(**port.get_params()).fit(X, y)

@@ -176,8 +176,7 @@ def test_estimator_from_jax_roundtrip(est, rng):
                                        backend="cpu").fit(X, y)
     port = estimator_from_jax(ref)
     assert type(port) is getattr(fastselect_tpu_torch, est)
-    assert port.get_params() == {k: v for k, v in ref.get_params().items()
-                                 if k != "transfer_dtype"}
+    assert port.get_params() == ref.get_params()
     assert_array_equal(port.transform(X), ref.transform(X))
     refit = type(port)(**port.get_params()).fit(X, y)
     assert_array_equal(refit.top_features_, port.top_features_)

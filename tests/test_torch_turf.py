@@ -330,7 +330,8 @@ def test_estimator_from_jax_turf(rng):
     assert isinstance(port.estimator, MultiSURF)
     assert port.estimator.get_params() == dict(
         n_features_to_select=0.2, backend="cpu", use_star=True,
-        discrete_limit=10, n_jobs=-1, verbose=False)
+        discrete_limit=10, n_jobs=-1, verbose=False,
+        transfer_dtype="float32")
     assert_array_equal(port.transform(X), ref.transform(X))
     assert_array_equal(port.feature_importances_, ref.feature_importances_)
     refit = TuRF(**port.get_params(deep=False)).fit(X, y)

@@ -163,7 +163,26 @@ Phases, one or two lines each on stdout:
     of that X and the upload of phase 7's int8 codes, against one
     pageable copy of them, and the copy seconds of phases 5 (large-p, now
     staged), 7 and 24 (gwas-promote's packed staging).  Its numbers go on
-    the fits line and on a ``staging:`` line before the JSON summary.
+    the fits line and on a ``staging:`` line before the JSON summary;
+26. completeness, after staging: (a) ReliefF's weight rule (one stable
+    sort of each focal row) on phase 9's large-n input (the continuous
+    kernels), phase 8's v1 tier (3,000 x 5,000 genotypes, 3 classes: the
+    discrete engine) and phase 6's 150-state mixed input (the ``MIXED``
+    kernels), first and two warm fits with their peak memory, then one
+    fit under ``utils.profiling.trace`` with the rule in a
+    ``record_function`` range for its device time; large-n and v1 are
+    held to phases 9 and 8's fits of the same estimator, the 150-state
+    input ranks its planted column first; (b)
+    ``fast_select_torch.MultiSURF(backend='gpu')``, the upstream import
+    surface, on phase 4's data: scores equal phase 4's bit for bit, and no
+    ``jax`` or ``fastselect_tpu`` module in the process; (c)
+    ``examples/torch/gwas_workflow.py --n 16384 --p 65536 --backend
+    cuda`` in a process of its own (deadline ``EXAMPLE_TIMEOUT_S``): it
+    exits 0 and recovers the planted signals.  Launch counts are set to 0
+    before it and read after (b): every kernel must launch, and the counts
+    stand in the kernels' line as ``completeness_launches``.  Its numbers
+    go on the fits line and on a ``completeness:`` line before the JSON
+    summary.
 
 Phases 14-20 print their first and warm fit times, int8 GEMM operations
 (``relief_discrete.gemm_ops``) and rate, peak device memory, the host
@@ -221,6 +240,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import fast_select_torch
 from fastselect_tpu_torch import (CFS, MDR, MultiSURF, ReliefF, SURF, TuRF,
                                   _build, chi2, mRMR, parallel)
 from fastselect_tpu_torch.models import _relief_base
@@ -293,6 +313,12 @@ MESH_PROCS = 4
 MESH_PROCS_DEADLINE_S = 300.0
 # phase 25: the stager's chunk widths timed (bytes a staged chunk)
 CHUNK_SWEEP = tuple(mb << 20 for mb in (8, 16, 32, 64, 128, 256))
+# phase 26: the profiler range around ReliefF's weight rule, where traces
+# go, and the GWAS example's deadline
+RULES_RANGE = "fs.relieff_rules"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+EXAMPLE_TIMEOUT_S = 300.0
+JAX_PACKAGES = ("jax", "fastselect_tpu")   # none may be in sys.modules
 # the card's name and power limit (nvidia-smi), set by main
 SMI = "not read"
 
@@ -2703,6 +2729,207 @@ def staging_phase(dev, X_p, y_p, X_snp, gwas, shape=(100, 500000)):
 
 
 # ---------------------------------------------------------------------------
+# Completeness: ReliefF's weight rule, the drop-in surface, the example
+# ---------------------------------------------------------------------------
+
+def trace_device_s(path, name):
+    """(device seconds of the kernels, copies and fills launched inside
+    the ``name`` ranges, device seconds of all of them) in the Chrome
+    trace at ``path``: a device event belongs to a range when the runtime
+    call that launched it (same correlation id) starts inside one."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("name") == name and e.get("cat") == "user_annotation"]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    inside = total = 0.0
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        total += e["dur"]
+        t = launched.get(e.get("args", {}).get("correlation"))
+        if t is not None and any(a <= t <= b for a, b in ranges):
+            inside += e["dur"]
+    return inside / 1e6, total / 1e6
+
+
+def rules_device_s(make, X, y, logdir):
+    """One fit of ``make()`` under ``utils.profiling.trace`` with ReliefF's
+    weight rule in a ``record_function`` range: (device seconds of what
+    the rule launched, device seconds of all the fit launched), from the
+    trace (zeros on the CPU)."""
+    orig = relief_mod._rules_relieff
+
+    def ranged(*a, **k):
+        with torch.profiler.record_function(RULES_RANGE):
+            return orig(*a, **k)
+
+    relief_mod._rules_relieff = ranged
+    try:
+        with profiling.trace(str(logdir)):
+            make().fit(X, y)
+    finally:
+        relief_mod._rules_relieff = orig
+    return trace_device_s(Path(logdir) / "trace.json", RULES_RANGE)
+
+
+def relieff_rule_fits(dev, label, make, X, y, must_launch=(), tier=None,
+                      ref=None, warm=2):
+    """Phase 26 (a): ``make()`` (a ReliefF) fitted first and ``warm`` more
+    times, each with its peak memory, then once under the profiler for
+    the weight rule's device time.  The fits launch ``must_launch`` (the
+    fused engine) or take the discrete engine's ``tier`` with no fused
+    launch; where ``ref`` (another phase's scores of the same fit) is
+    given the scores are held to it, with equal ``top_features_``, else
+    column 0 (planted) ranks first.  Returns its numbers."""
+    n, p = X.shape
+    y_enc = np.unique(y, return_inverse=True)[1]
+    kw = engine_args(make(), y_enc)
+    if tier is None:
+        plan = rc.block_plan(n, p, dev, "relieff")
+        pairs = plan.nb * plan.n_pad
+        shape = f"nb {plan.nb} of n_pad {plan.n_pad}"
+    else:
+        got = rd.discrete_tier(n, p, 3, y_enc, "relieff", kw["class_probs"],
+                               device=dev)
+        check(got == tier, f"{label}: tier {got}, expected {tier}")
+        ti = rd._discrete_tile_sizes(n, p, 3)[0]
+        pairs = ti * rd._round_up(n, ti)
+        shape = f"tier {tier}, ti {ti}"
+    before = dict(rc.launches)
+    rd.reset_gemm_ops()
+    base = torch.cuda.memory_allocated(dev)
+    times, peaks = [], []
+    for _ in range(1 + warm):
+        est, sec, peak = timed_fit(dev, make(), X, y)
+        times.append(sec)
+        peaks.append(peak)
+    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    ops = rd.gemm_ops
+    rules, device_s = rules_device_s(make, X, y,
+                                     BUILD_DIR / f"trace-relieff-{label}")
+    s = est.feature_importances_
+    check(est.effective_backend_ == dev.type, f"{label}: effective_backend_")
+    check(s.shape == (p,) and np.isfinite(s).all(),
+          f"{label}: finite scores of shape ({p},)")
+    for name in must_launch:
+        check(moved[name] > 0, f"{label}: the fit launched {name}")
+    check(dev.type != "cuda" or 0 < rules <= device_s,
+          f"{label}: the trace holds the rule's device time ({rules} of "
+          f"{device_s} s)")
+    if tier is not None:
+        check(not any(moved.values()) and ops > 0,
+              f"{label}: int8 GEMMs ({ops}) and no fused launch ({moved})")
+    if ref is None:
+        err = "none"
+        check(est.top_features_[0] == 0, f"{label}: column 0 ranks first")
+    else:
+        err = f"{float(np.abs(s - ref).max()):.3e}"
+        check(np.allclose(s, ref, rtol=0, atol=fit_tol(ref)),
+              f"{label}: max |scores - the earlier fit| {err}")
+        ref_top = np.argsort(ref)[::-1][:len(est.top_features_)]
+        check(np.array_equal(est.top_features_, ref_top),
+              f"{label}: top_features_ {est.top_features_} vs {ref_top}")
+    out = dict(first_s=times[0], warm_s=times[1:], peak_gb=max(peaks),
+               rules_s=rules, fit_device_s=device_s,
+               bytes_per_pair=(max(peaks) * 1e9 - base) / pairs, shape=shape)
+    print(f"relieff {label}: ReliefF X {n}x{p} ({shape}); fit "
+          f"{times[0]:.4f} s, warm {', '.join(f'{t:.4f}' for t in times[1:])}"
+          f" s; peak {max(peaks):.2f} GB ({out['bytes_per_pair']:.1f} B a "
+          f"pair over {base / 1e9:.2f} GB held); rule's device time "
+          f"{rules:.4f} s of the fit's {device_s:.4f} s in a profiled fit; "
+          f"launches {moved}, gemm_ops {ops:.4e}; max |scores - the earlier "
+          f"fit| {err} on {SMI}", flush=True)
+    return out
+
+
+def dropin_phase(dev, X, y, ref_scores, backend="gpu"):
+    """Phase 26 (b): ``fast_select_torch.MultiSURF(backend='gpu')``, the
+    upstream import surface, on phase 4's data: scores equal phase 4's bit
+    for bit, and no JAX module in this process."""
+    est, sec, peak = timed_fit(
+        dev, fast_select_torch.MultiSURF(n_features_to_select=10,
+                                         backend=backend), X, y)
+    s = est.feature_importances_
+    check(est.effective_backend_ == dev.type, "drop-in: effective_backend_")
+    check(np.array_equal(s.view(np.int32), ref_scores.view(np.int32)),
+          f"drop-in: scores bit for bit phase 4's (max diff "
+          f"{np.abs(s - ref_scores).max():.3e})")
+    jax_mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in JAX_PACKAGES)
+    check(not jax_mods, f"drop-in: JAX modules loaded: {jax_mods[:8]}")
+    print(f"drop-in: fast_select_torch.MultiSURF(backend={backend!r}) X "
+          f"{X.shape[0]}x{X.shape[1]} fit {sec:.4f} s, peak {peak:.2f} GB; "
+          f"scores equal phase 4's bit for bit; no jax or fastselect_tpu in "
+          f"sys.modules on {SMI}", flush=True)
+    return sec
+
+
+def example_phase(n=16384, p=65536, backend="cuda",
+                  timeout_s=EXAMPLE_TIMEOUT_S):
+    """Phase 26 (c): ``examples/torch/gwas_workflow.py`` as users run it,
+    in a process of its own with a deadline: it exits 0 and recovers the
+    planted signals.  Returns its seconds."""
+    script = Path(__file__).resolve().parent / "examples" / "torch" \
+        / "gwas_workflow.py"
+    cmd = [sys.executable, str(script), "--n", str(n), "--p", str(p),
+           "--backend", backend]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True,
+                       timeout=timeout_s)
+    sec = time.perf_counter() - t0
+    check(r.returncode == 0, f"gwas example: exit {r.returncode}: "
+          f"{r.stdout[-1000:]} {r.stderr[-2000:]}")
+    check("planted signals recovered: True" in r.stdout,
+          f"gwas example: {r.stdout[-2000:]}")
+    lines = [ln for ln in r.stdout.splitlines()
+             if ln.startswith(("TuRF elimination", "mRMR refinement",
+                               "planted signals"))]
+    print(f"gwas example: {' '.join(cmd[1:])}: {sec:.2f} s ("
+          f"{'; '.join(lines)}) on {SMI}", flush=True)
+    return sec
+
+
+def completeness_phase(dev, X_n, y_n, X_mf, y_mf, large_n_scores, refs,
+                       v1_shape=(3000, 5000), example=(16384, 65536)):
+    """Phase 26: ReliefF's weight rule at large-n, on the v1 tier and on
+    the 150-state mixed input (``refs``: phases 9 and 8's ReliefF scores
+    of the first two); the drop-in surface; the GWAS example.  Launch
+    counts are set to 0 before it and read after it: all four kernels
+    must launch.  Returns (numbers, launches)."""
+    t0 = time.perf_counter()
+    rc.reset_launch_counts()
+    cont = ("relief_pass1_cont", "relief_pass2_cont")
+    mixed = ("relief_pass1_mixed", "relief_pass2_mixed")
+    res = {"large-n": relieff_rule_fits(
+        dev, "large-n", lambda: ReliefF(n_features_to_select=10,
+                                        n_neighbors=10), X_n, y_n, cont,
+        ref=refs["large-n"])}
+    X, y = planted_genotypes(1, *v1_shape, 3)
+    res["tier-v1"] = relieff_rule_fits(
+        dev, "tier-v1", lambda: ReliefF(n_features_to_select=3,
+                                        n_neighbors=5), X, y, tier="v1",
+        ref=refs["tier-v1"])
+    res["mixed-fused"] = relieff_rule_fits(
+        dev, "mixed-fused", lambda: ReliefF(n_features_to_select=10,
+                                            discrete_limit=200),
+        X_mf, y_mf, mixed)
+    backend = "gpu" if dev.type == "cuda" else "cpu"
+    res["drop-in_s"] = dropin_phase(dev, X_n, y_n, large_n_scores, backend)
+    launches = dict(rc.launches)
+    for name in KERNELS:
+        check(launches[name] > 0, f"{name} launched in phase 26")
+    res["example_s"] = example_phase(*example,
+                                     backend="cuda" if backend == "gpu"
+                                     else "cpu")
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"completeness: phase {res['phase_s']:.2f} s; launches {launches}",
+          flush=True)
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
 # The kernels alone
 # ---------------------------------------------------------------------------
 
@@ -2948,6 +3175,7 @@ def main():
                                    n_informative=10, random_state=0)
     X_n = X_n.astype(np.float32)
     large_n, fit_n = fit_phase(dev, "large-n", X_n, y_n, cont, warm=2)
+    scores_n = large_n.feature_importances_
     X_p, y_p = make_classification(n_samples=100, n_features=100000,
                                    random_state=0)
     X_p = X_p.astype(np.float32)
@@ -3036,9 +3264,9 @@ def main():
 
     # 8. the other tiers
     X, y = planted_genotypes(1, 3000, 5000, 3)
-    discrete_phase(dev, "tier-v1",
-                   ReliefF(n_features_to_select=3, n_neighbors=5),
-                   X, y, "v1")
+    relieff_v1 = discrete_phase(dev, "tier-v1",
+                                ReliefF(n_features_to_select=3,
+                                        n_neighbors=5), X, y, "v1")
     X, y = planted_genotypes(2, 30000, 2048, 2)
     tier_v2 = discrete_phase(dev, "tier-v2",
                              MultiSURF(n_features_to_select=3, use_star=True),
@@ -3079,8 +3307,8 @@ def main():
                   make=make, **params)
     X, y = make_classification(n_samples=50000, n_features=100,
                                n_informative=10, random_state=0)
-    fit_phase(dev, "large-n", X.astype(np.float32), y, cont, make=ReliefF,
-              n_neighbors=10)
+    relieff_n, _ = fit_phase(dev, "large-n", X.astype(np.float32), y, cont,
+                             make=ReliefF, n_neighbors=10)
     oracle_phase_surf_relieff()
     for name in cont:
         check(rc.launches[name] > 0, f"{name} launched by SURF/ReliefF")
@@ -3137,9 +3365,7 @@ def main():
 
     # 22. profiling: timed_fit, phase records and a trace (under build/)
     t0 = time.perf_counter()
-    fit_timing = profiling_phase(dev, X_n, y_n,
-                                 Path(__file__).resolve().parent / "build"
-                                 / "trace-large-n")
+    fit_timing = profiling_phase(dev, X_n, y_n, BUILD_DIR / "trace-large-n")
     print(f"profiling: phase {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 23. the mesh across processes: four processes on the first card, and
@@ -3157,11 +3383,19 @@ def main():
     staged = staging_phase(dev, X_p, y_p, X_snp, gwas)
     del X_snp, X_p
 
+    # 26. completeness: ReliefF's weight rule at large-n, on the v1 tier
+    # and on the 150-state input; the drop-in surface; the GWAS example
+    complete, complete_launches = completeness_phase(
+        dev, X_n, y_n, X_mf, y_mf, scores_n,
+        {"large-n": relieff_n.feature_importances_,
+         "tier-v1": relieff_v1["scores"]})
+
     gp, gg = gwas["gwas-promote"], gwas["gwas-gather"]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_launches[name], "max_abs_err": err[name],
          "mesh_procs_launches": procs_launches[name],
+         "completeness_launches": complete_launches[name],
          **{k: timing[name][0][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "shape": timing[name][0]["shape"], "shapes": timing[name],
@@ -3199,13 +3433,20 @@ def main():
                       f"{min(v['warm_s']):.4f} s"
                       for td, v in staged["fits"].items())
           + f" (one-shot {staged['one_shot_s']:.4f} s; phase 25 "
-          f"{staged['phase_s']:.2f} s)"
+          f"{staged['phase_s']:.2f} s); "
+          + "; ".join(f"relieff {label} warm {min(r['warm_s']):.4f} s"
+                      for label, r in complete.items()
+                      if isinstance(r, dict))
+          + f"; drop-in {complete['drop-in_s']:.4f} s; gwas example "
+          f"{complete['example_s']:.2f} s (phase 26 "
+          f"{complete['phase_s']:.2f} s)"
           + f" on {smi}; chip_smoke {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print("gwas: " + json.dumps({
         "routes": gwas["routes"], "gwas-promote": gp, "gwas-gather": gg,
         "phase_s": gwas["phase_s"]}), flush=True)
     print("staging: " + json.dumps(staged), flush=True)
+    print("completeness: " + json.dumps(complete), flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -101,49 +101,66 @@ def _sum_rules(rules):
     return W
 
 
-def _topk_weight_rows(D_masked, k, n_pad):
-    """One-hot weight rows for the k smallest entries of each masked row.
-
-    ``lax.top_k`` takes the lower index first among equal values and
-    ``torch.topk`` promises no order among ties, so a stable sort picks
-    the same k entries as the JAX engines on tied rows.
-    """
-    vals, idx = torch.sort(D_masked, dim=1, stable=True)
-    vals, idx = vals[:, :k], idx[:, :k]
-    sel = (vals < _INF / 2).to(torch.float32)   # finite -> selected
-    W = torch.zeros((D_masked.shape[0], n_pad), dtype=torch.float32,
-                    device=D_masked.device)
-    W.scatter_(1, idx, sel)
-    return W, sel.sum(dim=1)
-
-
 def _rules_relieff(D, yi, vi, iid, y_flat, valid_flat, k, class_probs):
     """Class-prior-weighted k-NN rule: the reference CPU semantics
-    (ReliefF.py:137-220), NOT the simpler GPU variant."""
-    n_pad = D.shape[1]
-    n_classes = class_probs.shape[0]
-    vmask, hit = _pair_masks(D, yi, vi, iid, y_flat, valid_flat)
+    (ReliefF.py:137-220), NOT the simpler GPU variant.
 
-    # k nearest hits at weight -1/h_found
-    Dh = torch.where(hit & vmask, D, _INF)
-    W_hit, h_found = _topk_weight_rows(Dh, k, n_pad)
+    One stable sort of each masked row, shared by the hit rule and every
+    class rule, as in the reference's single ``np.argsort(dists)`` walk
+    (``ReliefF.py:157-174``) and JAX's ``_rules_relieff_argsort``: an
+    entry's rank among the hits, or within its class, is a cumulative
+    count in sorted order, and the picks go back to the original order by
+    one scatter through the sort's permutation.  The stable sort breaks
+    ties by the lower index, as ``lax.top_k`` does, so W equals that of
+    JAX's default rule (a ``top_k`` of each rule's masked row) bit for
+    bit; ``FS_RELIEFF_ARGSORT``, which picks between JAX's two rules, has
+    nothing to pick here.
+    """
+    n_classes = class_probs.shape[0]
+    vmask, _ = _pair_masks(D, yi, vi, iid, y_flat, valid_flat)
+    sidx = torch.sort(torch.where(vmask, D, _INF), dim=1, stable=True)[1]
+    # labels in sorted order; -2, which no label equals (padding is -1),
+    # where the pair is masked out
+    y_s = torch.where(vmask.gather(1, sidx), y_flat.to(torch.int32)[sidx],
+                      -2)
+    del vmask
+
+    def first_k(member):
+        """The first k members of each row in sorted order, and the
+        number of members."""
+        rank = torch.cumsum(member, dim=1, dtype=torch.int32)
+        return member & (rank <= k), rank[:, -1]
+
+    # pick_s: c + 1 on class c's k nearest, -1 on the k nearest hits (a
+    # hit's own class is no miss class), 0 elsewhere
+    pick_s = torch.zeros_like(y_s)
+    for c in range(n_classes):
+        pick_s.masked_fill_(first_k(y_s == c)[0], c + 1)
+    hits, n_hit = first_k(y_s == yi.to(torch.int32)[:, None])
+    pick_s.masked_fill_(hits, -1)
+    del y_s, hits
+    pick = torch.zeros_like(pick_s).scatter_(1, sidx, pick_s)
+    del pick_s, sidx
+
+    # k nearest hits at weight -1/h_found; the hits are the focal row's
+    # label, also one past class_probs (the op-level default of one dummy
+    # class)
+    h_found = n_hit.clamp(max=k).to(torch.float32)
     hit_norm = torch.where(h_found > 0,
                            1.0 / torch.clamp_min(h_found, 1.0), 0.0)
-    rules = [(W_hit > 0, -hit_norm)]
+    rules = [(pick == -1, -hit_norm)]
 
-    # k nearest misses per class at weight P(c) / (1 - P(y_i)) / k
-    # labels past class_probs (the op-level default of one dummy class)
-    # read its last entry, as JAX's clamped gather does
+    # k nearest misses per class at weight P(c) / (1 - P(y_i)) / k;
+    # labels past class_probs read its last entry, as JAX's clamped
+    # gather does
     denom = 1.0 - class_probs[yi.clamp(max=n_classes - 1)]
     denom = torch.where(denom == 0, 1.0, denom)
     for c in range(n_classes):
-        cand = (y_flat[None, :] == c) & vmask & (yi != c)[:, None]
-        Dc = torch.where(cand, D, _INF)
-        W_c, _ = _topk_weight_rows(Dc, k, n_pad)
         # times float32(1/k): XLA turns the JAX engine's division by the
         # constant k into this product, and W matches it bit for bit
         w_c = (class_probs[c] / denom) * (np.float32(1) / np.float32(k))
-        rules.append((W_c > 0, w_c.expand_as(hit_norm)))
+        rules.append(((pick == c + 1) & (yi != c)[:, None],
+                      w_c.expand_as(hit_norm)))
     return rules
 
 

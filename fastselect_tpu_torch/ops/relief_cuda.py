@@ -74,9 +74,13 @@ _PASS2_TARGET_BLOCKS = 1056
 # plus the rules' float32 and bool temporaries (_rules_multisurf holds
 # about six (nb, n_pad) arrays), with headroom.
 _BYTES_PER_PAIR = 32
-# ReliefF's rules hold more: each of their C + 1 stable sorts keeps float32
-# values and int64 indices (12 B a pair) and the sort's own scratch beside
-# D, the masked copy of D and a one-hot weight block.
+# ReliefF's rule holds more: its stable sort keeps float32 values and
+# int64 indices (12 B a pair) and the sort's own scratch beside D, the
+# masked copy of D, the int32 labels, ranks and picks in sorted order and
+# back.  It peaked at 46.3 B a pair at large-n's blocks (2,944 x 50,048
+# pairs) on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 26).
+# The blocks set the order of the float32 score sums, so the constant
+# also fixes the scores' bits.
 _RELIEFF_BYTES_PER_PAIR = 64
 # Share of the device's free memory a focal block may take.
 _FREE_MEM_FRACTION = 0.8

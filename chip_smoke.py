@@ -182,7 +182,29 @@ Phases, one or two lines each on stdout:
     before it and read after (b): every kernel must launch, and the counts
     stand in the kernels' line as ``completeness_launches``.  Its numbers
     go on the fits line and on a ``completeness:`` line before the JSON
-    summary.
+    summary;
+27. windows, after phase 3: the discrete engine's window kernels
+    (``csrc/relief_discrete.cu``) against their plain twins on the card,
+    at the headline's window (16,384 int8 rows, FT 2,048) and at
+    gwas-gather's (8,192 rows of 2-bit codes read through a class-order
+    index, FT 1,024), focal blocks of 4,096 (``WINDOWS``):
+    ``window_onehot`` bit for bit, transposed at FT (pass 2's operand)
+    and flat at FT (the precomputed one-hot's tile) and at the width
+    ``_match_rows`` gives pass 1 (``pass1_width``: 4,096 and 10,240
+    features), over all rows and over one focal block; ``window_partials``
+    on products built as ``_accumulate_plan`` builds them, for MultiSURF
+    on a single-class and a straddling block, ReliefF with 3 classes,
+    ReliefF on v1 with 60 classes (61 operands, as
+    ``_accumulate_discrete`` builds them) and SURF's exact-int path (bit
+    for bit, and equal to the eager chain it replaced), elsewhere within
+    ``WINDOW_RTOL`` of sum_i |v[i, f]| a feature and the same over three
+    launches (twice through one block's ``WindowPartials``, once through
+    ``window_partials``).  Each timed with CUDA events, as the engine
+    calls it, beside its twin, the eager chain it replaced (for the
+    one-hot, the twin itself) and its bound in bytes.  Phases 7, 8 and
+    24 set the window kernels' counts (``relief_discrete.launches``) to
+    0 before their fits and read them after: both kernels must launch in
+    each.
 
 Phases 14-20 print their first and warm fit times, int8 GEMM operations
 (``relief_discrete.gemm_ops``) and rate, peak device memory, the host
@@ -216,9 +238,10 @@ must launch the continuous kernels and the int8 GEMMs and no ``MIXED``
 kernel, and is held against the fused engine with the ``MIXED`` kernels
 on the same rows in the hybrid's order.  Any failed check raises, so the
 script exits non-zero; it also fails when no CUDA device is present.  The
-line before the last is a JSON summary of the kernels (launches, errors,
-times, bounds and registers, per timed shape); the last line is
-``{"ok": true, "device": {...}}``.
+line before the last is a JSON summary of the six kernels (launches,
+errors, times, bounds and registers, per timed shape; the window
+kernels' launches are phase 7's, with phases 7, 8 and 24 apart under
+``phase_launches``); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -230,6 +253,7 @@ import json
 import logging
 import math
 import pickle
+import re
 import shutil
 import subprocess
 import sys
@@ -275,14 +299,26 @@ KERNELS = {
     "relief_pass2_mixed": ("fastselect_tpu_torch/csrc/relief_pass2.cu",
                            "fastselect_tpu/ops/relief_pallas.py:103"),
 }
-# __global__ functions of each kernel, as ptxas names them (mangled: pass
-# 1's kind template has the instances ILb0 and ILb1)
+# The discrete engine's window kernels (``relief_discrete.launches``) ->
+# (source, the JAX code it stands for: a fusion XLA makes inside the
+# engine's window scan, not a Pallas kernel)
+WINDOW_KERNELS = {
+    "window_onehot": ("fastselect_tpu_torch/csrc/relief_discrete.cu",
+                      "fastselect_tpu/ops/relief_discrete.py:55"),
+    "window_partials": ("fastselect_tpu_torch/csrc/relief_discrete.cu",
+                        "fastselect_tpu/ops/relief_discrete.py:596"),
+}
+# __global__ functions of each of the six kernels, as ptxas names them
+# (mangled: pass 1's kind template has the instances ILb0 and ILb1)
 KERNEL_FUNCTIONS = {"relief_pass1_cont": ("dist_kernelILb0",
                                           "split_sum_kernel"),
                     "relief_pass1_mixed": ("dist_kernelILb1",
                                            "split_sum_kernel"),
                     "relief_pass2_cont": ("accum_kernel_cont",),
-                    "relief_pass2_mixed": ("accum_kernel_mixed",)}
+                    "relief_pass2_mixed": ("accum_kernel_mixed",),
+                    "window_onehot": ("onehot_kernel", "onehot_t_kernel"),
+                    "window_partials": ("partials_kernel",
+                                        "partials_finish_kernel")}
 # pass 1 of either kind must equal its plain version bit for bit
 SCORE_RTOL = 1e-3    # pass 2 against its plain version, relative to max|s|
 FIT_ATOL = 1e-4      # fitted scores against the plain-pass engine
@@ -299,6 +335,9 @@ MDR_BA_ATOL = 1e-6     # a fold winner's float32 BA against the float64 oracle
 # phase 24: a GWAS-scale route against another route or the referee
 # (atol: tests/test_engines.py:363,554,583; rtol for the larger scores)
 GWAS_TOL = (5e-7, 1e-6)
+# phase 27: window_partials against its twin, per feature, relative to
+# sum_i |v[i, f]| (the two sum the same float32 values in other orders)
+WINDOW_RTOL = 1e-6
 # the bounds' card, an H100 SXM at 700 W (NVIDIA's data sheet)
 _H100 = PEAKS["NVIDIA H100 80GB HBM3"]
 INT8_PEAK_TOPS = _H100.int8_tops                # dense int8, TOP/s
@@ -675,6 +714,7 @@ def discrete_phase(dev, label, est, X, y, tier, warm=0):
                            kw.get("class_probs"), device=dev)
     check(got == tier, f"{label}: tier {got}, expected {tier}")
     before = dict(rc.launches)
+    rd.reset_launch_counts()
     times, peaks = [], []
     for _ in range(1 + warm):
         rd.reset_gemm_ops()
@@ -682,10 +722,12 @@ def discrete_phase(dev, label, est, X, y, tier, warm=0):
         times.append(sec)
         peaks.append(peak)
     ops = rd.gemm_ops
+    window = dict(rd.launches)
     moved = {k: rc.launches[k] - before[k] for k in rc.launches}
     s = est.feature_importances_
     check(est.effective_backend_ == "cuda", f"{label}: effective_backend_")
     check(not any(moved.values()), f"{label}: fused launches {moved}")
+    check(all(window.values()), f"{label}: window kernels launched {window}")
     check(ops > 0, f"{label}: no int8 GEMM ran")
     check(est.is_discrete_.all(), f"{label}: every column discrete")
     check(s.shape == (p,) and np.isfinite(s).all(),
@@ -708,11 +750,12 @@ def discrete_phase(dev, label, est, X, y, tier, warm=0):
         if warm else ""
     print(f"{label}: {type(est).__name__} X {n}x{p} {X.dtype} tier {tier}; "
           f"fit {times[0]:.4f} s{warm_s}; gemm_ops {ops:.4e}; peak "
-          f"{max(peaks):.2f} GB; MIXED-kernel fused engine {ref_s:.4f} s; "
-          f"max |scores - MIXED| {err:.3e}; top_features_ "
-          f"{est.top_features_.tolist()} equal", flush=True)
+          f"{max(peaks):.2f} GB; window kernels {window}; MIXED-kernel "
+          f"fused engine {ref_s:.4f} s; max |scores - MIXED| {err:.3e}; "
+          f"top_features_ {est.top_features_.tolist()} equal", flush=True)
     return dict(first_s=times[0], warm_s=times[1:], gemm_ops=ops,
-                peak_gb=max(peaks), mixed_s=ref_s, err=err, scores=s)
+                peak_gb=max(peaks), mixed_s=ref_s, err=err, scores=s,
+                window_launches=window)
 
 
 def engine_rate(dev, X, y):
@@ -1960,9 +2003,14 @@ def gwas_phase(dev, X, y, head, sizes=None):
     compared = pack_checks(dev, **sizes.get("pack", {}))
     print(f"gwas pack checks: {compared} tensors packed, unpacked, matched "
           f"and promoted on the card equal the CPU's", flush=True)
+    rd.reset_launch_counts()
     res = {"routes": headline_routes(dev, X, y, head)}
     res["gwas-promote"] = gwas_promote_phase(dev, **sizes.get("promote", {}))
     res["gwas-gather"] = gwas_gather_phase(dev, **sizes.get("gather", {}))
+    res["window_launches"] = dict(rd.launches)
+    # the window kernels run on the card; on the CPU their twins do
+    check(dev.type != "cuda" or all(res["window_launches"].values()),
+          f"gwas: window kernels launched {res['window_launches']}")
     res["phase_s"] = time.perf_counter() - t0
     print(f"gwas: phase {res['phase_s']:.2f} s", flush=True)
     return res
@@ -2933,15 +2981,27 @@ def completeness_phase(dev, X_n, y_n, X_mf, y_mf, large_n_scores, refs,
 # The kernels alone
 # ---------------------------------------------------------------------------
 
+def _instance(mangled, fn):
+    """``fn`` with the template arguments of its instance in ``mangled``
+    (bool and int arguments), e.g. ``partials_kernel<true, 2>``."""
+    fn = fn.replace("ILb0", "<false>").replace("ILb1", "<true>")
+    rest = mangled[mangled.index(fn) + len(fn):] if fn in mangled else ""
+    m = re.match(r"I((?:L[bi]\d+E)+)E", rest)
+    if m is None:
+        return fn
+    args = [{"b0": "false", "b1": "true"}.get(k + v, v)
+            for k, v in re.findall(r"L([bi])(\d+)E", m.group(1))]
+    return f"{fn}<{', '.join(args)}>"
+
+
 def ptxas_usage():
     """Kernel name -> [(function, registers, spill bytes)] from ptxas."""
-    out = {name: [] for name in KERNELS}
+    out = {name: [] for name in KERNEL_FUNCTIONS}
     for mangled, regs, spill in _build.ptxas_report():
         for name, fns in KERNEL_FUNCTIONS.items():
             fn = next((f for f in fns if f in mangled), None)
             if fn is not None:
-                out[name].append((fn.replace("ILb0", "<false>").replace(
-                    "ILb1", "<true>"), regs, spill))
+                out[name].append((_instance(mangled, fn), regs, spill))
     return out
 
 
@@ -3117,6 +3177,282 @@ def kernel_timing(dev, err):
     return timing
 
 # ---------------------------------------------------------------------------
+# The discrete engine's window kernels (phase 27)
+# ---------------------------------------------------------------------------
+
+def eager_window_partials(prods, coeffs, ci, off, w, n_states, total_w,
+                          bits=0):
+    """The eager chain that ``window_partials`` replaced, as the engine
+    ran it before: a zeroed int32 q an operand with its products added in,
+    cast, scaled and added into a (TI, S * wp) p_sum, then the focal
+    one-hot, ``where`` and two sums.  Timed beside the kernel."""
+    ti, sft = prods[0][0].shape
+    exact = not total_w.is_floating_point()
+    acc = torch.int32 if exact else torch.float32
+    p_sum = torch.zeros((ti, sft), dtype=acc, device=ci.device)
+    for seg_prods, coeff in zip(prods, coeffs):
+        q = torch.zeros((ti, sft), dtype=torch.int32, device=ci.device)
+        for prod in seg_prods:
+            q += prod
+        if coeff is None:
+            p_sum = p_sum + q.to(acc)
+        else:
+            p_sum = p_sum + q.to(acc) * coeff[:, None]
+    ai = rd._onehot_flat(rd._gemm_window(ci, off, w, bits), n_states)
+    t2 = torch.where(ai > 0, p_sum, 0).sum(dim=0)
+    return (total_w - t2.view(n_states, -1).sum(dim=0)).to(
+        torch.float32)[:w]
+
+
+def v_mass(prods, coeffs, ci, off, w, n_states, bits=0):
+    """sum_i |v[i, f]| (w,) in float64: the scale of window_partials'
+    float32 sums over focal rows."""
+    wp = prods[0][0].shape[1] // n_states
+    idx = (rd._codes_window(ci, off, w, bits).to(torch.int64) * wp
+           + torch.arange(w, device=ci.device))
+    v = torch.zeros(idx.shape, dtype=torch.float64, device=ci.device)
+    for seg_prods, coeff in zip(prods, coeffs):
+        s = sum(q.gather(1, idx).to(torch.float64) for q in seg_prods)
+        v += s if coeff is None else s * coeff.to(torch.float64)[:, None]
+    return v.abs().sum(dim=0)
+
+
+def window_data(dev, label, n, width, seed):
+    """Phase 27's codes, ``width`` features wide: the headline's (int8, n
+    rows in class order) or gwas-gather's (2-bit codes read through an
+    index that puts them in class order): (codes, bits, rows or None)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    codes = torch.randint(0, 3, (n, width), generator=gen, device=dev,
+                          dtype=torch.int8)
+    if label == "snp-headline":
+        return codes, 0, None
+    perm = np.random.RandomState(seed).permutation(n)
+    return (rd.stage_codes_packed(codes, 3, dev).packed, 2,
+            torch.as_tensor(perm, device=dev))
+
+
+def window_rules(dev, algo, y, block, ti, seed):
+    """Weight rules of focal block ``block`` over samples of labels ``y``
+    (in row order), shaped as ``pair_weight_rules`` returns them: (mask
+    (ti, n) bool, coefficients (ti,) float32) in its order for ``algo``
+    (SURF: near misses, near hits; ReliefF: hits, then the misses of each
+    class), each mask random on its rule's support only."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cls = torch.as_tensor(y, device=dev)
+    same = cls[block * ti:(block + 1) * ti, None] == cls[None, :]
+    supports = {"multisurf": [same, ~same], "surf": [~same, same],
+                "relieff": [same] + [(cls == c)[None, :] & ~same
+                                     for c in range(int(y.max()) + 1)]}
+    rules = []
+    for support in supports[algo]:
+        mask = (torch.rand(same.shape, generator=gen, device=dev)
+                < 0.02) & support
+        r = (torch.ones(ti, device=dev) if algo == "surf" else
+             (0.5 + torch.rand(ti, generator=gen, device=dev)) / 64)
+        rules.append((mask, r))
+    return rules
+
+
+def window_case(dev, codes, bits, rows, off, w, ti, algo, counts, block,
+                v1=False):
+    """One window of ``_accumulate_plan`` built as the engine builds it:
+    (products, coefficients, focal codes, total_w) of focal block
+    ``block`` over rows in classes of ``counts`` (the plan of
+    ``_plan_segments`` for the block's class, or the full span where it
+    straddles), and the plan's name.  With ``v1``, the window of
+    ``_accumulate_discrete`` instead: every rule over all rows, one
+    product each (the tier of more than 16 classes)."""
+    n = codes.shape[0] if rows is None else rows.shape[0]
+    y = np.repeat(np.arange(len(counts)), counts)
+    rules = window_rules(dev, algo, y, block, ti, seed=block)
+    exact = algo == "surf"
+    coeffs = [r.to(torch.int32) if exact else r for _, r in rules]
+    total_w = rd._total_weight([m for m, _ in rules], coeffs,
+                               torch.int32 if exact else torch.float32)
+    aa_t = rd.window_onehot(codes, off, w, 3, bits, rows, transpose=True)
+    if v1:
+        prods = [[rd._dot_t(m.to(torch.int8), aa_t)] for m, _ in rules]
+        where, op_coeffs = f"v1, {len(counts)} classes", coeffs
+    else:
+        classes, _, segments, block_class, _ = rd._class_sorted_layout(y,
+                                                                       ti)
+        pos = block_class[block]
+        plan = rd._plan_segments(algo, False,
+                                 tuple(int(c) for c in classes), pos)
+        segs_all = list(segments) + [(0, n)]
+        operands = []
+        for spec, segs in plan:
+            mat, coeff = rd._plan_operand(spec, rules, False)
+            operands.append(([rd._segment_operand(mat, *segs_all[q])
+                              for q in segs], coeff))
+        prods = [[rd._dot_t(op, aa_t[:, r0:r1]) for op, r0, r1 in seg_ops]
+                 for seg_ops, _ in operands]
+        where = "straddling" if pos is None else f"class {pos}"
+        op_coeffs = [c for _, c in operands]
+    del rules, aa_t
+    blk = slice(block * ti, (block + 1) * ti)
+    ci = codes[blk] if rows is None else codes[rows[blk]]
+    return (prods, op_coeffs, ci, total_w,
+            f"{algo} block {block} ({where}, "
+            f"{sum(len(sp) for sp in prods)} products)")
+
+
+def window_bound_ms(nbytes):
+    """The least time to move ``nbytes`` at the card's memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+# phase 27's windows: (label, rows, FT, TI, two and three class counts in
+# row order, which place a single-class block first and a straddling one
+# second, and the number of classes of a ReliefF window on v1, the tier
+# of more than 16 classes)
+WINDOWS = (("snp-headline", 16384, 2048, 4096, (7000, 9384),
+            (5000, 6000, 5384), 60),
+           ("gwas-gather", 8192, 1024, 4096, (5192, 3000),
+            (4500, 2000, 1692), 60))
+
+
+def window_phase(dev, windows=WINDOWS):
+    """Phase 27: the window kernels against their plain twins on the card
+    at the headline's window (16,384 int8 rows, FT 2,048, TI 4,096) and
+    gwas-gather's (8,192 rows of 2-bit codes through a class-order index,
+    FT 1,024): window_onehot bit for bit, transposed at FT (pass 2's
+    operand), flat at FT (the precomputed one-hot's tile) and at the
+    width ``_match_rows`` gives pass 1 (``pass1_width``) over all rows
+    and over one focal block; window_partials for MultiSURF on a
+    single-class and a straddling block, ReliefF with 3 classes, ReliefF
+    on v1 with 60 classes (61 operands) and SURF's exact-int path (bit
+    for bit), elsewhere within WINDOW_RTOL of sum_i |v[i, f]| a feature;
+    then each timed (CUDA events, mean of 10) beside its twin, the eager
+    chain it replaced and its bound.  Returns (max |error| by kernel,
+    timed rows by kernel); ``windows`` replaces ``WINDOWS`` for a
+    rehearsal at a small size."""
+    t0 = time.perf_counter()
+    err = {k: 0.0 for k in WINDOW_KERNELS}
+    timing = {k: [] for k in WINDOW_KERNELS}
+    before = dict(rd.launches)
+    for label, n, w, ti, two, three, many in windows:
+        fw = rd.pass1_width(n, 3, w)
+        codes, bits, rows = window_data(dev, label, n, max(2 * w, fw),
+                                        seed=27)
+        off = w
+        focal = codes[:ti] if rows is None else codes[rows[:ti]]
+        # (layout, codes, row index, first feature, width, what it is)
+        onehots = [(True, codes, rows, off, w, f"pass 2 operand, {n} rows "
+                    f"x {w}"),
+                   (False, codes, rows, off, w, f"one-hot tile, {n} rows "
+                    f"x {w}"),
+                   (False, codes, rows, 0, fw, f"pass 1 window, {n} rows "
+                    f"x {fw}"),
+                   (False, focal, None, 0, fw, f"pass 1 window, {ti} focal "
+                    f"rows x {fw}")]
+        for transpose, src, idx, start, width, what in onehots:
+            layout = "transposed" if transpose else "flat"
+            rows_n = src.shape[0] if idx is None else idx.shape[0]
+            got = rd.window_onehot(src, start, width, 3, bits, idx,
+                                   transpose=transpose)
+            ref = rd.window_onehot_ref(src, start, width, 3, bits, idx,
+                                       transpose=transpose)
+            check(torch.equal(got, ref), f"window_onehot {label} {layout} "
+                  f"{what}: differs from its twin")
+            ms = cuda_ms(lambda: rd.window_onehot(
+                src, start, width, 3, bits, idx, transpose=transpose), 10)
+            plain_ms = cuda_ms(lambda: rd.window_onehot_ref(
+                src, start, width, 3, bits, idx, transpose=transpose), 10)
+            read = (rows_n * width // (8 // bits if bits else 1)
+                    + (0 if idx is None else 8 * rows_n))
+            bound = window_bound_ms(read + got.numel())
+            timing["window_onehot"].append(dict(
+                shape=f"{label} {layout} ({what}"
+                      f"{', 2-bit' if bits else ', int8'}"
+                      f"{' through an index' if idx is not None else ''})",
+                ms=ms, plain_ms=plain_ms, eager_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes", share=bound / ms, library_ms=None,
+                max_abs_err=0.0))
+            print(f"window_onehot {label} {layout} {what} "
+                  f"({tuple(got.shape)}): equal to its twin; kernel "
+                  f"{ms:.4f} ms, twin (the eager chain it replaced) "
+                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes), "
+                  f"{100 * bound / ms:.1f}% of it", flush=True)
+            del got, ref
+        del focal
+        many_counts = np.full(many, n // many)
+        many_counts[:n % many] += 1
+        cases = [("multisurf", two, 0, False), ("multisurf", two, 1, False),
+                 ("relieff", three, 0, False), ("relieff", three, 1, False),
+                 ("relieff", tuple(many_counts), 1, True),
+                 ("surf", two, 0, False)]
+        for algo, counts, block, v1 in cases:
+            prods, coeffs, ci, total_w, name = window_case(
+                dev, codes, bits, rows, off, w, ti, algo, counts, block, v1)
+            # as the engine calls it: the block's table built once
+            epilogue = rd.WindowPartials([len(sp) for sp in prods], coeffs,
+                                         ci, 3, total_w, bits)
+            got = epilogue(prods, off, w)
+            again = epilogue(prods, off, w)
+            once = rd.window_partials(prods, coeffs, ci, off, w, 3, total_w,
+                                      bits)
+            ref = rd.window_partials_ref(prods, coeffs, ci, off, w, 3,
+                                         total_w, bits)
+            eager = eager_window_partials(prods, coeffs, ci, off, w, 3,
+                                          total_w, bits)
+            check(torch.equal(got, again) and torch.equal(got, once),
+                  f"window_partials {label} {name}: launches differ")
+            diff = (got - ref).abs()
+            if algo == "surf":
+                check(torch.equal(got, ref) and torch.equal(got, eager),
+                      f"window_partials {label} {name}: exact-int path "
+                      f"differs from its twin or the eager chain")
+                bound_rel = 0.0
+            else:
+                mass = v_mass(prods, coeffs, ci, off, w, 3, bits)
+                over = diff.to(torch.float64) - WINDOW_RTOL * mass
+                check(bool((over <= 0).all()),
+                      f"window_partials {label} {name}: |kernel - twin| "
+                      f"past {WINDOW_RTOL} sum_i |v| (by {over.max():.3e})")
+                check(bool(((eager - ref).abs().to(torch.float64)
+                            <= WINDOW_RTOL * mass).all()),
+                      f"window_partials {label} {name}: the eager chain "
+                      f"past the tolerance")
+                bound_rel = float((diff.to(torch.float64)
+                                   / mass.clamp_min(1e-30)).max())
+            max_err = float(diff.max())
+            err["window_partials"] = max(err["window_partials"], max_err)
+            line = (f"window_partials {label} {name}: max |kernel - twin| "
+                    f"{max_err:.3e} (max over features of |err| / sum_i |v| "
+                    f"{bound_rel:.3e}), equal over three launches")
+            if block == 0 and algo == "multisurf":
+                ms = cuda_ms(lambda: epilogue(prods, off, w), 10)
+                plain_ms = cuda_ms(lambda: rd.window_partials_ref(
+                    prods, coeffs, ci, off, w, 3, total_w, bits), 10)
+                eager_ms = cuda_ms(lambda: eager_window_partials(
+                    prods, coeffs, ci, off, w, 3, total_w, bits), 10)
+                nbytes = (sum(q.numel() * 4 for sp in prods for q in sp)
+                          + ci.shape[0] * w // (8 // bits if bits else 1)
+                          + 4 * ti * len(coeffs) + 4 * w)
+                bound = window_bound_ms(nbytes)
+                timing["window_partials"].append(dict(
+                    shape=f"{label} window: TI {ti} x {w} features, "
+                          f"{name}", ms=ms, plain_ms=plain_ms,
+                    eager_ms=eager_ms, bound_ms=bound, bound_by="bytes",
+                    share=bound / ms, library_ms=None, max_abs_err=max_err))
+                line += (f"; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+                         f"eager chain {eager_ms:.4f} ms, bound {bound:.4f} "
+                         f"ms (bytes), {100 * bound / ms:.1f}% of it")
+            print(line, flush=True)
+            del prods, ci, got, again, once, ref, eager, epilogue
+        del codes, rows
+        torch.cuda.empty_cache()
+    moved = {k: rd.launches[k] - before[k] for k in rd.launches}
+    # the kernels run on the card; on the CPU their twins do
+    check(dev.type != "cuda" or all(moved.values()),
+          f"phase 27: window kernels launched {moved}")
+    print(f"windows: phase {time.perf_counter() - t0:.2f} s on {SMI}",
+          flush=True)
+    return err, timing
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     t_start = time.perf_counter()
@@ -3167,6 +3503,8 @@ def main():
     # 3. kernels against their plain versions, then timed
     err = kernel_checks(dev)
     timing = kernel_timing(dev, err)
+    # 27. the discrete engine's window kernels against their twins, timed
+    window_err, window_timing = window_phase(dev)
 
     # 4-6. the main path
     rc.reset_launch_counts()
@@ -3293,8 +3631,8 @@ def main():
           flush=True)
     X_v2, y_v2 = X, y
     X, y = planted_genotypes(3, 8192, 16384, 2)
-    discrete_phase(dev, "tier-v2-sym", SURF(n_features_to_select=3),
-                   X.astype(np.float64), y, "v2-sym")
+    tier_sym = discrete_phase(dev, "tier-v2-sym", SURF(n_features_to_select=3),
+                              X.astype(np.float64), y, "v2-sym")
     del X
 
     # 9. SURF and ReliefF on continuous data
@@ -3402,6 +3740,28 @@ def main():
          "registers": [regs for _, regs, _ in ptxas[name]],
          "spill_bytes": [spill for _, _, spill in ptxas[name]]}
         for name, (src, rep) in KERNELS.items()]}
+    # the window kernels' launches on the discrete main path: each phase's
+    # fits with the counts set to 0 before them and read after them
+    window_launches = {
+        "snp-headline": head["window_launches"],
+        "tier-v1": relieff_v1["window_launches"],
+        "tier-v2": tier_v2["window_launches"],
+        "tier-v2-sym": tier_sym["window_launches"],
+        "gwas": gwas["window_launches"]}
+    summary["kernels"] += [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": head["window_launches"][name],
+         "max_abs_err": window_err[name],
+         "phase_launches": {label: counts[name] for label, counts
+                            in window_launches.items()},
+         **{k: window_timing[name][0][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "eager_ms")},
+         "shape": window_timing[name][0]["shape"],
+         "shapes": window_timing[name],
+         "registers": [regs for _, regs, _ in ptxas[name]],
+         "spill_bytes": [spill for _, _, spill in ptxas[name]]}
+        for name, (src, rep) in WINDOW_KERNELS.items()]
     print(f"fits: large-n {fit_n:.4f} s, large-p {fit_p:.4f} s, mixed "
           f"{fit_m:.4f} s, mixed-fused {fit_mf:.4f} s, mixed-xl "
           f"{fit_xl:.4f} s (warm {', '.join(f'{t:.4f}' for t in warm_xl)} "

@@ -45,6 +45,14 @@ _SIGNATURES = {
     # stream
     "fs_relief_pass2_mixed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _P),
+    # codes, ld_codes, rows, n_rows, off, w, wp, bits, n_states, out,
+    # ld_out, transpose, stream
+    "fs_window_onehot": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I,
+                         _P),
+    # table, n_products, n_operands, int_mode, ci, ld_ci, off, bits,
+    # n_rows, w, wp, n_states, total_w, partial, spans, span, out, stream
+    "fs_window_partials": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _I, _I, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -37,6 +37,18 @@ host) because of jit dispatch limits.  Here each tier is one Python loop
 over focal blocks, and block partials are summed in float64 on the device.
 The score is divided by n by :func:`relief_discrete_scores`.
 
+Each feature window of both passes runs two hand-written kernels of
+``csrc/relief_discrete.cu`` around its GEMMs, the counterparts of the two
+fusions XLA makes of the JAX package's window scan:
+:func:`window_onehot` builds the window's one-hot operand (unpacking
+packed codes and reading rows through an index as it goes), and
+:func:`window_partials` reduces pass 2's int32 products at each focal
+row's state into the window's score partials, with no float temporary
+of the products.  On a CUDA tensor each wrapper launches its kernel or
+raises; on a CPU tensor it runs its plain twin (:func:`window_onehot_ref`,
+:func:`window_partials_ref`), which is also the kernels' referee on the
+card.  ``launches`` counts the kernels' launches by name.
+
 Codes past the sort budget (GWAS scale: 2.2 n p bytes over
 ``_DEVICE_SORT_BUDGET``, JAX's share of its 16 GiB chip scaled to the
 card) get no class-sorted copy.  Host codes go to the device bit-packed,
@@ -58,6 +70,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import _build
 from ..utils import staging
 from ..utils.logging import phase
 from ..utils.preprocessing import MAX_STATES, encode_columns
@@ -72,6 +85,8 @@ _GEMM_ALIGN = 8
 
 # 2*m*k*n of every int8 product since the last reset
 gemm_ops = 0
+# launches of the window kernels since the last reset
+launches = {"window_onehot": 0, "window_partials": 0}
 
 
 def reset_gemm_ops() -> None:
@@ -79,19 +94,25 @@ def reset_gemm_ops() -> None:
     gemm_ops = 0
 
 
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
 def _round_up(v: int, m: int) -> int:
     return ((v + m - 1) // m) * m
 
 
-def _dot(a, b):
-    """a @ b, int8 x int8 -> exact int32."""
+def _dot(a, b, out=None):
+    """a @ b, int8 x int8 -> exact int32 (into ``out`` if given)."""
     global gemm_ops
-    out = torch._int_mm(a, b)
+    out = torch._int_mm(a, b) if out is None else torch._int_mm(a, b,
+                                                                out=out)
     gemm_ops += 2 * a.shape[0] * a.shape[1] * b.shape[1]
     return out
 
 
-def _dot_t(a, b):
+def _dot_t(a, b, out=None):
     """a @ b.T for row-major a (m, k) and b (n, k): b.T is the
     column-major (k, n) operand, which the GEMM reads without a copy.
 
@@ -99,7 +120,7 @@ def _dot_t(a, b):
     axis contiguous in both operands: on an H100 cuBLASLt ran a
     4096x8192x6144 int8 product at 959 TOP/s this way and at 129 TOP/s
     with a row-major B."""
-    return _dot(a, b.t())
+    return _dot(a, b.t(), out)
 
 
 def _onehot(codes, states, shape):
@@ -322,13 +343,296 @@ def _gemm_window(codes_a, off, w, bits, rows=None):
 
 
 # ---------------------------------------------------------------------------
+# The window kernels (csrc/relief_discrete.cu) and their plain twins
+# ---------------------------------------------------------------------------
+
+# window_partials: 32 features by 8 row groups a block; the focal rows
+# split into spans of at least _PARTIALS_MIN_SPAN rows (a multiple of 8)
+# until the grid has _PARTIALS_TARGET_BLOCKS blocks (eight resident blocks
+# on each of the H100's 132 SMs).  The plan comes from the shape alone, so
+# the sums' order, and the bits, do too.
+_PARTIALS_FEATURES = 32
+_PARTIALS_MIN_SPAN = 64
+_PARTIALS_TARGET_BLOCKS = 1056
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def partials_plan(n_rows: int, w: int) -> tuple[int, int]:
+    """(spans, rows a span) of :func:`window_partials` over ``n_rows``
+    focal rows and ``w`` features."""
+    ftiles = _cdiv(w, _PARTIALS_FEATURES)
+    spans = max(1, min(_cdiv(_PARTIALS_TARGET_BLOCKS, ftiles),
+                       _cdiv(n_rows, _PARTIALS_MIN_SPAN)))
+    span = _round_up(_cdiv(n_rows, spans), 8)
+    return _cdiv(n_rows, span), span
+
+
+def window_onehot_ref(codes_a, off, w, n_states, bits=0, rows=None, *,
+                      transpose=False):
+    """Plain version of :func:`window_onehot`: the window's codes widened
+    to the GEMM's size with code -1 and expanded by ``torch.eq``."""
+    win = _gemm_window(codes_a, off, w, bits, rows)
+    return (_onehot_flat_t if transpose else _onehot_flat)(win, n_states)
+
+
+def _check_window(codes_a, bits, off, w):
+    """Raise unless [off, off + w) lies inside the codes' features and
+    starts on a packed byte."""
+    if (off < 0 or w <= 0 or off + w > _unpacked_width(codes_a, bits)
+            or (bits and off % (8 // bits))):
+        raise ValueError(f"window [{off}, {off + w}) is not inside the "
+                         f"codes' {_unpacked_width(codes_a, bits)} features"
+                         f" or does not start on a packed byte")
+
+
+def _check_codes(codes_a, bits, rows, off, w, n_states):
+    """Raise unless the window [off, off + w) of ``codes_a`` can be read
+    as the kernels read it."""
+    if codes_a.dtype != (torch.uint8 if bits else torch.int8):
+        raise TypeError(f"codes must be {'uint8 packed' if bits else 'int8'}"
+                        f", got {codes_a.dtype}")
+    if codes_a.dim() != 2 or codes_a.stride(1) != 1:
+        raise ValueError("codes must be a 2-d tensor with unit column "
+                         "stride")
+    if bits not in (0, 1, 2, 4):
+        raise ValueError(f"bits must be 0, 1, 2 or 4, got {bits}")
+    _check_window(codes_a, bits, off, w)
+    if not 0 < n_states <= MAX_STATES:
+        raise ValueError(f"n_states must be in [1, {MAX_STATES}], got "
+                         f"{n_states}")
+    if rows is not None and (rows.dtype != torch.int64 or rows.dim() != 1
+                             or not rows.is_contiguous()
+                             or rows.device != codes_a.device):
+        raise ValueError("rows must be a contiguous int64 vector on the "
+                         "codes' device")
+
+
+def window_onehot(codes_a, off, w, n_states, bits=0, rows=None, *,
+                  transpose=False, out=None):
+    """The one-hot GEMM operand of features [off, off + w) of ``codes_a``:
+    (rows, S * wp) int8 with state c of feature f at column c * wp + f,
+    or with ``transpose`` its transpose (S * wp, rows), rows contiguous;
+    wp is ``w`` widened to the GEMM's size on CUDA (:func:`_gemm_size`),
+    whose columns past w are 0.
+
+    ``codes_a`` is int8 codes (``bits`` 0) or codes packed ``8 // bits`` a
+    byte (``off`` whole bytes of them), unpacked as they are read; the
+    index ``rows`` (int64) picks and orders its rows.  ``out``, a tensor of
+    that shape with unit column stride (rows may be further apart), takes
+    the result.  On CUDA the kernel writes it (``csrc/relief_discrete.cu``);
+    on the CPU :func:`window_onehot_ref` computes it."""
+    _check_codes(codes_a, bits, rows, off, w, n_states)
+    n_rows = codes_a.shape[0] if rows is None else rows.shape[0]
+    wp = _gemm_size(w, codes_a.device)
+    shape = (n_states * wp, n_rows) if transpose else (n_rows, n_states * wp)
+    if out is not None and (tuple(out.shape) != shape
+                            or out.dtype != _DOT_DTYPE or out.stride(1) != 1
+                            or out.device != codes_a.device):
+        raise ValueError(f"out must be int8 of shape {shape} with unit "
+                         f"column stride on {codes_a.device}")
+    if codes_a.device.type == "cpu":
+        hot = window_onehot_ref(codes_a, off, w, n_states, bits, rows,
+                                transpose=transpose)
+        return hot if out is None else out.copy_(hot)
+    if out is None:
+        out = torch.empty(shape, dtype=_DOT_DTYPE, device=codes_a.device)
+    lib = _build.load()
+    with torch.cuda.device(codes_a.device):
+        err = lib.fs_window_onehot(
+            codes_a.data_ptr(), codes_a.stride(0),
+            None if rows is None else rows.data_ptr(), n_rows, off, w, wp,
+            bits, n_states, out.data_ptr(), out.stride(0), int(transpose),
+            torch.cuda.current_stream(codes_a.device).cuda_stream)
+    _build.check(err, "window_onehot")
+    launches["window_onehot"] += 1
+    return out
+
+
+def window_partials_ref(prods, coeffs, ci, off, w, n_states, total_w,
+                        bits=0):
+    """Plain version of :func:`window_partials`: each product gathered at
+    the focal rows' states first, then the float (or, for an integer
+    ``total_w``, int32) work on (TI, w) values."""
+    codes = _codes_window(ci, off, w, bits).to(torch.int64)
+    wp = prods[0][0].shape[1] // n_states
+    idx = codes * wp + torch.arange(w, device=ci.device)
+    exact = not total_w.is_floating_point()
+    acc = _ACC_DTYPE if exact else torch.float32
+    v = torch.zeros(idx.shape, dtype=acc, device=ci.device)
+    for seg_prods, coeff in zip(prods, coeffs):
+        s = seg_prods[0].gather(1, idx)
+        for q in seg_prods[1:]:
+            s += q.gather(1, idx)
+        if coeff is None:
+            v = v + s.to(acc)
+        elif exact:
+            v = v + s * coeff[:, None]
+        else:
+            v = v + s.to(torch.float32) * coeff[:, None]
+    return (total_w - v.sum(dim=0)).to(torch.float32)
+
+
+class WindowPartials:
+    """:func:`window_partials` of one focal block: what holds for all its
+    windows (the coefficients, ``total_w``, the focal codes) is checked
+    and converted once, and each call reduces one window's products.
+
+    ``n_products[k]`` is the number of products of operand k.  On CUDA a
+    call launches the kernel with a device table of the products' and
+    coefficients' addresses, built the first time a window's products
+    lie at those addresses: products written into the same buffers every
+    window (:meth:`products`) reuse one table a window width.  On the CPU
+    a call runs :func:`window_partials_ref`."""
+
+    def __init__(self, n_products, coeffs, ci, n_states, total_w, bits=0):
+        _check_codes(ci, bits, None, 0, 1, n_states)
+        self.n_products = [int(c) for c in n_products]
+        if len(self.n_products) != len(coeffs) or min(self.n_products) < 1:
+            raise ValueError("every operand needs a coefficient entry and "
+                             "at least one product")
+        self.ci, self.n_states, self.bits = ci, n_states, bits
+        self.exact = not total_w.is_floating_point()
+        dtype = _ACC_DTYPE if self.exact else torch.float32
+        ti = ci.shape[0]
+        self.coeffs = [None if c is None else c.contiguous() for c in coeffs]
+        for c in self.coeffs:
+            if c is not None and (c.dtype != dtype or c.shape != (ti,)
+                                  or c.device != ci.device):
+                raise ValueError(f"coefficients must be {dtype} of shape "
+                                 f"({ti},) on {ci.device}")
+        self.total_w = total_w.to(device=ci.device, dtype=torch.int64
+                                  if self.exact else torch.float32)
+        self._buf = None
+        # (w, wp, product addresses) -> (table, partial scratch, spans, span)
+        self._launch = {}
+
+    def products(self, w):
+        """Buffers for one window's products, ``[[q, ...], ...]`` in plan
+        order, each (TI, S * wp) int32 for ``w`` features; every window of
+        one width gets the same buffers."""
+        wp = _gemm_size(w, self.ci.device)
+        cols = self.n_states * wp
+        size = sum(self.n_products) * self.ci.shape[0] * cols
+        if self._buf is None or self._buf.numel() < size:
+            self._buf = torch.empty(size, dtype=_ACC_DTYPE,
+                                    device=self.ci.device)
+        qs = iter(self._buf[:size].view(-1, self.ci.shape[0], cols)
+                  .unbind(0))
+        return [[next(qs) for _ in range(m)] for m in self.n_products]
+
+    def _check_products(self, prods, w, wp):
+        ti = self.ci.shape[0]
+        if [len(seg_prods) for seg_prods in prods] != self.n_products:
+            raise ValueError(f"products per operand must be "
+                             f"{self.n_products}")
+        for seg_prods in prods:
+            for q in seg_prods:
+                if (q.dtype != _ACC_DTYPE
+                        or q.shape != (ti, self.n_states * wp)
+                        or not q.is_contiguous()
+                        or q.device != self.ci.device):
+                    raise ValueError(f"every product must be contiguous "
+                                     f"int32 of shape ({ti}, "
+                                     f"{self.n_states * wp}) on "
+                                     f"{self.ci.device}")
+        if not 0 < w <= wp:
+            raise ValueError(f"w {w} must be in (0, {wp}]")
+
+    def __call__(self, prods, off, w, *, out=None):
+        """The (w,) float32 partials of the window [off, off + w) from its
+        products ``prods`` (``[[q, ...], ...]``, as :meth:`products`)."""
+        ci = self.ci
+        wp = prods[0][0].shape[1] // self.n_states
+        if out is not None and (out.shape != (w,)
+                                or out.dtype != torch.float32
+                                or not out.is_contiguous()):
+            raise ValueError(f"out must be contiguous float32 ({w},)")
+        _check_window(ci, self.bits, off, w)
+        if ci.device.type == "cpu":
+            self._check_products(prods, w, wp)
+            part = window_partials_ref(prods, self.coeffs, ci, off, w,
+                                       self.n_states, self.total_w,
+                                       self.bits)
+            return part if out is None else out.copy_(part)
+        addrs = [q.data_ptr() for seg_prods in prods for q in seg_prods]
+        key = (w, wp, *addrs)
+        launch = self._launch.get(key)
+        if launch is None:
+            self._check_products(prods, w, wp)
+            first = np.cumsum([0] + self.n_products).tolist()
+            table = torch.tensor(
+                addrs + [0 if c is None else c.data_ptr()
+                         for c in self.coeffs] + first,
+                dtype=torch.int64).to(ci.device, non_blocking=True)
+            spans, span = partials_plan(ci.shape[0], w)
+            partial = torch.empty((spans, w), dtype=_ACC_DTYPE if self.exact
+                                  else torch.float32, device=ci.device)
+            launch = self._launch[key] = (table, partial, spans, span)
+        table, partial, spans, span = launch
+        if out is None:
+            out = torch.empty(w, dtype=torch.float32, device=ci.device)
+        lib = _build.load()
+        with torch.cuda.device(ci.device):
+            err = lib.fs_window_partials(
+                table.data_ptr(), len(addrs), len(self.n_products),
+                int(self.exact), ci.data_ptr(), ci.stride(0), off, self.bits,
+                ci.shape[0], w, wp, self.n_states, self.total_w.data_ptr(),
+                partial.data_ptr(), spans, span, out.data_ptr(),
+                torch.cuda.current_stream(ci.device).cuda_stream)
+        _build.check(err, "window_partials")
+        launches["window_partials"] += 1
+        return out
+
+
+def window_partials(prods, coeffs, ci, off, w, n_states, total_w, bits=0,
+                    *, out=None):
+    """Pass 2's score partials of one window, (w,) float32:
+    ``total_w - sum_i v[i, f]`` with
+    ``v[i, f] = sum_k coeffs[k][i] * float(q_k[i, ci[i, f] * wp + f])``.
+
+    ``prods[k]`` lists operand k's int32 products (TI, S * wp) (several
+    for an operand of several segments: summed in int32 first),
+    ``coeffs[k]`` its (TI,) row coefficients or None for 1, ``ci`` the
+    focal rows' codes, read as :func:`window_onehot` reads codes (``off``,
+    ``bits``).  ``total_w`` is a scalar tensor: float32, or an integer for
+    the exact-int path (int32 coefficients, every term and sum exact).  v
+    adds the operands in order, with the rounding of the plain version's
+    ``p_sum``; the sum over focal rows runs in an order fixed by the shape
+    (:func:`partials_plan`).  ``out`` takes the result.  On CUDA the
+    kernel computes it (``csrc/relief_discrete.cu``); on the CPU
+    :func:`window_partials_ref`.  A loop over the windows of one focal
+    block uses :class:`WindowPartials`, which does the per-block work
+    once."""
+    return WindowPartials([len(seg_prods) for seg_prods in prods], coeffs,
+                          ci, n_states, total_w, bits)(prods, off, w,
+                                                       out=out)
+
+
+# ---------------------------------------------------------------------------
 # v1: unsorted rows
 # ---------------------------------------------------------------------------
 
+# Pass 1 takes as many feature tiles a window as keep the one-hot of all
+# its rows under this many bytes: match counts are exact int32 sums over
+# features, so the width moves no bit, and each window adds its (TI, rows)
+# product into the counts once.
+_PASS1_ONEHOT_BYTES = 1 << 28
+
+
+def pass1_width(n_rows: int, n_states: int, ft: int) -> int:
+    """Features a window of :func:`_match_rows` over ``n_rows`` rows: as
+    many ``ft``-feature tiles as keep its one-hot under
+    ``_PASS1_ONEHOT_BYTES``, at least one."""
+    return ft * max(1, _PASS1_ONEHOT_BYTES // max(1, n_rows * n_states * ft))
+
+
 def _match_rows(ci, codes_a, ft, n_states, bits=0, rows=None):
     """Pass 1: exact match counts (TI, rows), one (TI, S*w) x (rows, S*w)^T
-    product per window of ``ft`` features (the last one narrower on a
-    ragged feature axis).
+    product per window of a whole number of ``ft``-feature tiles (the
+    last one narrower on a ragged feature axis).
 
     ``ci`` and ``codes_a`` are int8 codes, or both packed (``bits``; ``ft``
     whole bytes); ``rows`` picks and orders ``codes_a``'s rows.  The
@@ -337,14 +641,13 @@ def _match_rows(ci, codes_a, ft, n_states, bits=0, rows=None):
     """
     p_raw = _unpacked_width(codes_a, bits)
     n_rows = codes_a.shape[0] if rows is None else rows.shape[0]
+    fw = pass1_width(n_rows, n_states, ft)
     acc = torch.zeros((ci.shape[0], n_rows), dtype=_ACC_DTYPE,
                       device=ci.device)
-    for off in range(0, p_raw, ft):
-        w = min(ft, p_raw - off)
-        acc += _dot_t(
-            _onehot_flat(_gemm_window(ci, off, w, bits), n_states),
-            _onehot_flat(_gemm_window(codes_a, off, w, bits, rows),
-                         n_states))
+    for off in range(0, p_raw, fw):
+        w = min(fw, p_raw - off)
+        acc += _dot_t(window_onehot(ci, off, w, n_states, bits),
+                      window_onehot(codes_a, off, w, n_states, bits, rows))
     return acc
 
 
@@ -352,14 +655,6 @@ def _total_weight(masks, coeffs, acc_dtype):
     """sum_ij W_ij = sum_k sum_i r_k[i] |M_k[i]|, in ``acc_dtype``."""
     return sum((r * m.sum(dim=1, dtype=_ACC_DTYPE).to(acc_dtype)).sum()
                for m, r in zip(masks, coeffs))
-
-
-def _tile_part(total_w, p_sum, ci_t, n_states):
-    """One feature tile's scores: total_w minus the weight of the pairs
-    that match, float32 (FT,)."""
-    ai = _onehot_flat(ci_t, n_states)
-    t2 = torch.where(ai > 0, p_sum, 0).sum(dim=0)
-    return (total_w - t2.view(n_states, -1).sum(dim=0)).to(torch.float32)
 
 
 def _accumulate_discrete(ci, codes_a, rules, ft, n_states,
@@ -370,7 +665,6 @@ def _accumulate_discrete(ci, codes_a, rules, ft, n_states,
     ``exact_int`` (SURF's unit +/-1 row coefficients): every term is an
     integer count, so the sums run in int32, exact while TI * n < 2^31.
     """
-    ti = ci.shape[0]
     p_pad = codes_a.shape[1]
     masks = [m.to(_DOT_DTYPE) for m, _ in rules]
     if exact_int:
@@ -380,15 +674,16 @@ def _accumulate_discrete(ci, codes_a, rules, ft, n_states,
         coeffs = [r for _, r in rules]
         acc_dtype = torch.float32
     total_w = _total_weight(masks, coeffs, acc_dtype)
+    epilogue = WindowPartials([1] * len(masks), coeffs, ci, n_states,
+                              total_w)
     parts = torch.empty(p_pad, dtype=torch.float32, device=ci.device)
     for f0 in range(0, p_pad, ft):
-        aa_t = _onehot_flat_t(codes_a[:, f0:f0 + ft], n_states)
-        p_sum = torch.zeros((ti, n_states * ft), dtype=acc_dtype,
-                            device=ci.device)
-        for m, r in zip(masks, coeffs):
-            p_sum = p_sum + _dot_t(m, aa_t).to(acc_dtype) * r[:, None]
-        parts[f0:f0 + ft] = _tile_part(total_w, p_sum, ci[:, f0:f0 + ft],
-                                       n_states)
+        w = min(ft, p_pad - f0)
+        aa_t = window_onehot(codes_a, f0, w, n_states, transpose=True)
+        prods = epilogue.products(w)
+        for m, (q,) in zip(masks, prods):
+            _dot_t(m, aa_t, out=q)
+        epilogue(prods, f0, w, out=parts[f0:f0 + w])
     return parts
 
 
@@ -653,24 +948,20 @@ def _accumulate_plan(ci, codes_a, rules, plan, segs_all, ft, n_states,
     coeffs = [r.to(_ACC_DTYPE) if all_int else r for _, r in rules]
     total_w = _total_weight([m for m, _ in rules], coeffs, acc_dtype)
 
+    epilogue = WindowPartials([len(seg_ops) for seg_ops, _ in operands],
+                              [coeff for _, coeff in operands], ci,
+                              n_states, total_w, bits)
     parts = torch.empty(p_pad, dtype=torch.float32, device=dev)
     for t, f0 in enumerate(range(0, p_pad, ft)):
         w = min(ft, p_pad - f0)
-        aa_t = (_onehot_flat_t(_gemm_window(codes_a, f0, w, bits, rows),
-                               n_states)
+        aa_t = (window_onehot(codes_a, f0, w, n_states, bits, rows,
+                              transpose=True)
                 if onehot_t is None else onehot_t[t])
-        sft = aa_t.shape[0]
-        p_sum = torch.zeros((ti, sft), dtype=acc_dtype, device=dev)
-        for seg_ops, coeff in operands:
-            q = torch.zeros((ti, sft), dtype=_ACC_DTYPE, device=dev)
-            for op, r0, r1 in seg_ops:
-                q += _dot_t(op, aa_t[:, r0:r1])
-            if coeff is None:
-                p_sum = p_sum + q.to(acc_dtype)
-            else:
-                p_sum = p_sum + q.to(torch.float32) * coeff[:, None]
-        parts[f0:f0 + w] = _tile_part(
-            total_w, p_sum, _gemm_window(ci, f0, w, bits), n_states)[:w]
+        prods = epilogue.products(w)
+        for (seg_ops, _), seg_prods in zip(operands, prods):
+            for (op, r0, r1), q in zip(seg_ops, seg_prods):
+                _dot_t(op, aa_t[:, r0:r1], out=q)
+        epilogue(prods, f0, w, out=parts[f0:f0 + w])
     return parts
 
 
@@ -696,22 +987,24 @@ def _build_onehot(cpad, ft, n_states):
     """Precomputed one-hot, tile-major: (n_pad, nf * S * ft) int8 with
     f-tile t's states at columns [t * S * ft, (t + 1) * S * ft)."""
     n_pad, p_pad = cpad.shape
-    nf = p_pad // ft
-    hot = _onehot(cpad.view(n_pad, nf, 1, ft),
-                  _states(n_states, cpad).view(1, 1, n_states, 1),
-                  (n_pad, nf, n_states, ft))
-    return hot.view(n_pad, nf * n_states * ft)
+    sft = n_states * ft
+    hot = torch.empty((n_pad, p_pad // ft * sft), dtype=_DOT_DTYPE,
+                      device=cpad.device)
+    for t in range(p_pad // ft):
+        window_onehot(cpad, t * ft, ft, n_states,
+                      out=hot[:, t * sft:(t + 1) * sft])
+    return hot
 
 
 def _build_onehot_t(cpad, ft, n_states):
     """Precomputed transposed one-hot for pass 2: (nf, S * ft, n_pad)
-    int8, entry t the :func:`_onehot_flat_t` of f-tile t."""
+    int8, entry t the transposed :func:`window_onehot` of f-tile t."""
     n_pad, p_pad = cpad.shape
-    nf = p_pad // ft
-    hot = _onehot(cpad.t().reshape(nf, 1, ft, n_pad),
-                  _states(n_states, cpad).view(1, n_states, 1, 1),
-                  (nf, n_states, ft, n_pad))
-    return hot.view(nf, n_states * ft, n_pad)
+    hot = torch.empty((p_pad // ft, n_states * ft, n_pad), dtype=_DOT_DTYPE,
+                      device=cpad.device)
+    for t in range(p_pad // ft):
+        window_onehot(cpad, t * ft, ft, n_states, transpose=True, out=hot[t])
+    return hot
 
 
 def _match_matrix_sym(onehot_a, ti):

@@ -420,10 +420,10 @@ def test_gwas_phase_rehearse(cpu_card, monkeypatch):
                         TD._round_up(max(v, minimum), 8))
     dot = TD._dot
 
-    def card_dot(a, b):
+    def card_dot(a, b, out=None):
         assert a.shape[0] > 16 and a.shape[1] % 8 == 0
         assert b.shape[1] % 8 == 0 and b.stride(0) == 1, (a.shape, b.shape)
-        return dot(a, b)
+        return dot(a, b, out)
     monkeypatch.setattr(TD, "_dot", card_dot)
     rs = np.random.RandomState(0)
     X = rs.randint(0, 3, (300, 2100), dtype=np.int8)

@@ -8,9 +8,13 @@ interface and is loaded with ``ctypes``, so no PyTorch headers are
 compiled.  Its file name carries a hash of the sources (headers included)
 and flags, so an edited kernel is rebuilt and a stale library is never
 loaded.  ``ptxas``'s report of each kernel's registers and spills is
-kept beside it (:func:`ptxas_report`).  Each entry point
-launches on the stream it is given and returns ``cudaGetLastError()``;
-:func:`check` turns a nonzero code into an exception.
+kept beside it (:func:`ptxas_report`).  Each entry point launches on the
+stream it is given and returns ``cudaGetLastError()``; :func:`check`
+turns a nonzero code into an exception.  With the package's logger at
+INFO the load logs one ``build.kernels`` record: its seconds, the
+kernels compiled (0 when the library was already built) and the entry
+points loaded, also counted as ``kernels_compiled`` and
+``kernels_loaded``.
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ import re
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
+
+from .utils.logging import count, log_seconds
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -159,6 +166,8 @@ def load() -> ctypes.CDLL:
     """The kernel library, built and loaded on first use."""
     global _lib
     if _lib is None:
+        t0 = time.perf_counter()
+        fresh = not library_path().exists()
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -167,6 +176,12 @@ def load() -> ctypes.CDLL:
         lib.fs_cuda_error_string.argtypes = (ctypes.c_int,)
         lib.fs_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
+        compiled = len(ptxas_report()) if fresh else 0
+        count("kernels_compiled", compiled)
+        count("kernels_loaded", len(_SIGNATURES))
+        log_seconds("build.kernels", time.perf_counter() - t0,
+                    kernels_compiled=compiled,
+                    kernels_loaded=len(_SIGNATURES))
     return _lib
 
 

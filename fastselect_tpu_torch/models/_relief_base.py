@@ -25,6 +25,7 @@ from ..ops.relief_discrete import keeps_host_codes
 from ..utils.backend import (default_device, resolve_backend,
                              tensor_backend, _VALID_BACKENDS)
 from ..utils import staging
+from ..utils.logging import fit_span, span
 from ..utils.preprocessing import (MAX_STATES, FeatureAnalysis,
                                    analyze_features, analyze_features_staged,
                                    resolve_transfer_dtype)
@@ -92,6 +93,7 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
             print(f"Running {name} on the "
                   f"{self.effective_backend_.upper()} now...")
 
+    @fit_span
     def fit(self, X, y):
         """Score all features and select the top ones.
 
@@ -109,43 +111,48 @@ class BaseReliefSelector(TransformerMixin, BaseEstimator):
         -------
         self : object
         """
-        if isinstance(X, torch.Tensor):
-            X, y = self._check_tensor(X, y)
-            self._device_ = X.device
-            self.effective_backend_ = tensor_backend(
-                self.backend, X.device, self._algo_name)
-        else:
-            int_x = (isinstance(X, np.ndarray) and X.ndim == 2
-                     and X.size > 0 and np.issubdtype(X.dtype, np.integer))
-            X, y = validate_data(
-                self, X, y, y_numeric=True,
-                # integer input (genotypes) keeps its integer dtype: a
-                # float cast would copy it only to be encoded back to int8
-                # (any injective per-column coding gives the same Hamming
-                # match counts, so small non-negative values ARE valid
-                # codes)
-                dtype="numeric" if int_x else self._validate_dtype,
-                ensure_2d=True)
-        self.n_features_in_ = X.shape[1]
-        n_select = self._validate_parameters(X.shape[0], self.n_features_in_)
-        if not isinstance(X, torch.Tensor):
-            self.effective_backend_ = self._resolve_backend()
-            self._device_ = None
-
-        return self._fit_analysis(self._analysis(X, self._device()), y,
-                                  n_select)
+        with span("fit.validate"):
+            if isinstance(X, torch.Tensor):
+                X, y = self._check_tensor(X, y)
+                self._device_ = X.device
+                self.effective_backend_ = tensor_backend(
+                    self.backend, X.device, self._algo_name)
+            else:
+                int_x = (isinstance(X, np.ndarray) and X.ndim == 2
+                         and X.size > 0
+                         and np.issubdtype(X.dtype, np.integer))
+                X, y = validate_data(
+                    self, X, y, y_numeric=True,
+                    # integer input (genotypes) keeps its integer dtype: a
+                    # float cast would copy it only to be encoded back to
+                    # int8 (any injective per-column coding gives the same
+                    # Hamming match counts, so small non-negative values
+                    # ARE valid codes)
+                    dtype="numeric" if int_x else self._validate_dtype,
+                    ensure_2d=True)
+            self.n_features_in_ = X.shape[1]
+            n_select = self._validate_parameters(X.shape[0],
+                                                 self.n_features_in_)
+            if not isinstance(X, torch.Tensor):
+                self.effective_backend_ = self._resolve_backend()
+                self._device_ = None
+        with span("fit.analysis"):
+            analysis = self._analysis(X, self._device())
+        return self._fit_analysis(analysis, y, n_select)
 
     def _fit_analysis(self, analysis, y, n_select):
         """The rest of ``fit`` once X is analysed on the fit's device."""
-        if relief_engine(len(y), analysis.is_discrete,
-                         analysis.n_states) == "fused":
-            analysis.codes = None   # the fused engine reads X alone
-        self.is_discrete_ = analysis.is_discrete.cpu().numpy()
-        scores = self._score(analysis.x_dev, y, analysis, n_select)
+        with span("fit.score"):
+            if relief_engine(len(y), analysis.is_discrete,
+                             analysis.n_states) == "fused":
+                analysis.codes = None   # the fused engine reads X alone
+            self.is_discrete_ = analysis.is_discrete.cpu().numpy()
+            scores = self._score(analysis.x_dev, y, analysis, n_select)
         if scores is None:  # the algorithm's early exit set the attributes
             return self
-        self.feature_importances_ = scores
-        self.top_features_ = np.argsort(scores)[::-1][:n_select]
+        with span("fit.select"):
+            self.feature_importances_ = scores
+            self.top_features_ = np.argsort(scores)[::-1][:n_select]
         return self
 
     def _column_scorer(self, X, y):

@@ -20,6 +20,7 @@ from ..ops.contingency import (StagedColumnStats, matrix_column,
                                stage_codes, staged_stat_matrix,
                                staged_target_tables, tables_stat)
 from ..utils.backend import default_device, resolve_backend
+from ..utils.logging import fit_span
 from ..utils.sklearn_compat import (BaseEstimator, KBinsDiscretizer,
                                     SelectorMixin, check_is_fitted,
                                     check_X_y)
@@ -149,6 +150,7 @@ class CFS(BaseEstimator, SelectorMixin):
         self.backend = backend
         self.n_jobs = n_jobs
 
+    @fit_span
     def fit(self, X, y):
         """Find the best feature subset by correlation analysis."""
         feature_names = np.asarray(X.columns) if hasattr(X, "columns") else None

@@ -15,6 +15,7 @@ from scipy.stats import chi2 as chi2_dist
 
 from ..ops.chi2_op import chi2_stats, chi2_stats_exact
 from ..utils.backend import default_device, resolve_backend, tensor_backend
+from ..utils.logging import fit_span
 from ..utils.sklearn_compat import check_X_y
 
 
@@ -43,6 +44,7 @@ def _check_tensor(X, y):
     return y
 
 
+@fit_span
 def chi2(X, y, *, backend: str = "auto",
          exact: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """Chi-squared statistics and p-values for each feature.

@@ -23,6 +23,7 @@ from ..ops.mdr_op import MDRFoldScorer, unrank_combos
 from ..parallel.mdr_shard import ShardedMDRFoldScorer
 from ..parallel.sharded import check_same_inputs, make_mesh
 from ..utils.backend import default_device, resolve_backend
+from ..utils.logging import fit_span
 from ..utils.sklearn_compat import (BaseEstimator, ClassifierMixin,
                                     StratifiedKFold, check_array,
                                     check_is_fitted, check_X_y,
@@ -131,6 +132,7 @@ class MDR(BaseEstimator, ClassifierMixin):
                       unrank_combos(n_features, self.k, int(r), int(r) + 1)[0])
                 for r in best_ranks]
 
+    @fit_span
     def fit(self, X, y):
         """Search all k-way interactions and fit the best MDR model."""
         X, y = check_X_y(X, y, dtype=np.uint8)

@@ -19,6 +19,7 @@ from ..ops.contingency import (StagedColumnStats, matrix_column,
                                stage_codes, staged_stat_matrix,
                                staged_target_tables, tables_stat)
 from ..utils.backend import default_device, resolve_backend
+from ..utils.logging import fit_span
 from ..utils.sklearn_compat import (BaseEstimator, TransformerMixin,
                                     check_is_fitted, validate_data)
 
@@ -119,6 +120,7 @@ class mRMR(BaseEstimator, TransformerMixin):
             _ = self.redundancy_matrix_
         return dict(self.__dict__)
 
+    @fit_span
     def fit(self, X: np.ndarray, y: np.ndarray):
         """Select features greedily by the mRMR criterion."""
         X, y = validate_data(self, X, y, dtype=None, y_numeric=True,

@@ -35,6 +35,7 @@ import tempfile
 
 import numpy as np
 
+from ..utils.logging import fit_span
 from ..utils.sklearn_compat import (BaseEstimator, TransformerMixin,
                                     check_is_fitted, clone, validate_data)
 
@@ -86,6 +87,7 @@ class TuRF(TransformerMixin, BaseEstimator):
         self.verbose = verbose
         self.checkpoint_path = checkpoint_path
 
+    @fit_span
     def fit(self, X, y):
         """Run the iterative elimination loop."""
         # small-int input (genotypes) keeps its dtype end to end: the Relief

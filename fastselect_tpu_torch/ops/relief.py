@@ -33,6 +33,8 @@ import os
 import numpy as np
 import torch
 
+from ..utils.logging import count, span
+
 _INF = 3.0e38
 
 
@@ -207,14 +209,22 @@ def relief_engine_core(x_f, yv_f, valid_f, row0, x_a, yv_a, valid_a,
     dev = x_a.device
     scores = torch.zeros(x_a.shape[1], dtype=torch.float32, device=dev)
     for b0 in range(0, x_f.shape[0], nb):
+        count("focal_blocks")
         xi = x_f[b0:b0 + nb]
         iid = torch.arange(row0 + b0, row0 + b0 + xi.shape[0], device=dev)
-        W = _sum_rules(pair_weight_rules(
-            pass1(x_a, recip, disc, xi=xi, mixed=mixed),
-            yv_f[b0:b0 + nb], valid_f[b0:b0 + nb], iid, yv_a, valid_a,
-            n_real, class_probs, algo=algo, use_star=use_star, k=k))
-        scores += pass2(x_a, W, recip, disc, xi=xi, mixed=mixed,
-                        n_disc=n_disc)
+        with span("fused.pass1", device=dev):
+            D = pass1(x_a, recip, disc, xi=xi, mixed=mixed)
+        with span("weight_rules", device=dev):
+            rules = pair_weight_rules(
+                D, yv_f[b0:b0 + nb], valid_f[b0:b0 + nb], iid, yv_a,
+                valid_a, n_real, class_probs, algo=algo, use_star=use_star,
+                k=k)
+            del D   # freed before W is summed
+            W = _sum_rules(rules)
+            del rules
+        with span("fused.pass2", device=dev):
+            scores += pass2(x_a, W, recip, disc, xi=xi, mixed=mixed,
+                            n_disc=n_disc)
     return scores
 
 

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..utils.logging import phase
+from ..utils.logging import count, counters, phase, span
 from .relief import relief_engine_core
 
 # Samples pad to 64 rows, which meets the hybrid engine's int8 GEMMs (more
@@ -92,6 +92,7 @@ _REF_CHUNK_ELEMS = 1 << 26
 
 launches = {"relief_pass1_cont": 0, "relief_pass1_mixed": 0,
             "relief_pass2_cont": 0, "relief_pass2_mixed": 0}
+counters("launches", launches)
 
 
 def reset_launch_counts() -> None:
@@ -367,6 +368,7 @@ def _block_budget_bytes(device: torch.device, sharers: int = 1) -> int:
     divided among the ``sharers`` processes whose shards sit on it."""
     if device.type != "cuda":
         return _CPU_BLOCK_BYTES // sharers
+    count("mem_get_info")
     free, _ = torch.cuda.mem_get_info(device)
     cached = (torch.cuda.memory_reserved(device)
               - torch.cuda.memory_allocated(device))
@@ -489,9 +491,10 @@ def relief_fused_scores(
     device = torch.device(x.device if device is None else device)
     n, p = x.shape
     disc = np.asarray(torch.as_tensor(is_discrete).cpu(), bool)
-    plan = block_plan(n, p, device, algo, n_disc=int(disc.sum()))
-    fl = stage_fused(x, y, recip, disc, class_probs, device, plan.n_pad,
-                     plan.p_pad)
+    with span("fused.plan"):
+        plan = block_plan(n, p, device, algo, n_disc=int(disc.sum()))
+        fl = stage_fused(x, y, recip, disc, class_probs, device, plan.n_pad,
+                         plan.p_pad)
     with phase(f"relief_cuda.engine[{algo}]", work=float(n) * n * p):
         scores = relief_engine_core(
             fl.xp, fl.yv, fl.valid, 0, fl.xp, fl.yv, fl.valid, fl.recip,

@@ -72,7 +72,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..utils import staging
-from ..utils.logging import phase
+from ..utils.logging import count, counters, phase, span
 from ..utils.preprocessing import MAX_STATES, encode_columns
 from .relief import pair_weight_rules
 
@@ -87,6 +87,7 @@ _GEMM_ALIGN = 8
 gemm_ops = 0
 # launches of the window kernels since the last reset
 launches = {"window_onehot": 0, "window_partials": 0}
+counters("launches", launches)
 
 
 def reset_gemm_ops() -> None:
@@ -677,6 +678,7 @@ def _accumulate_discrete(ci, codes_a, rules, ft, n_states,
     epilogue = WindowPartials([1] * len(masks), coeffs, ci, n_states,
                               total_w)
     parts = torch.empty(p_pad, dtype=torch.float32, device=ci.device)
+    count("windows", _cdiv(p_pad, ft))
     for f0 in range(0, p_pad, ft):
         w = min(ft, p_pad - f0)
         aa_t = window_onehot(codes_a, f0, w, n_states, transpose=True)
@@ -704,15 +706,21 @@ def relief_discrete_core(codes_f, yv_f, valid_f, row0,
     # |t2| <= TI * n stays inside int32
     exact = algo == "surf" and ti * n_pad < 2 ** 31
     for i0 in range(0, codes_f.shape[0], ti):
+        count("focal_blocks")
         ci = codes_f[i0:i0 + ti]
         iid = torch.arange(row0 + i0, row0 + i0 + ti, device=dev)
-        D = (p_pad - _match_rows(ci, codes_a, ft, n_states)).to(
-            torch.float32)
-        rules = pair_weight_rules(
-            D, yv_f[i0:i0 + ti], valid_f[i0:i0 + ti], iid, yv_a, valid_a,
-            n_real, class_probs, algo=algo, use_star=use_star, k=k)
-        total += _accumulate_discrete(ci, codes_a, rules, ft, n_states,
-                                      exact_int=exact)
+        with span("discrete.pass1", device=dev):
+            match = _match_rows(ci, codes_a, ft, n_states)
+        with span("weight_rules", device=dev):
+            D = (p_pad - match).to(torch.float32)
+            del match
+            rules = pair_weight_rules(
+                D, yv_f[i0:i0 + ti], valid_f[i0:i0 + ti], iid, yv_a,
+                valid_a, n_real, class_probs, algo=algo, use_star=use_star,
+                k=k)
+        with span("discrete.pass2", device=dev):
+            total += _accumulate_discrete(ci, codes_a, rules, ft, n_states,
+                                          exact_int=exact)
     return total
 
 
@@ -952,6 +960,7 @@ def _accumulate_plan(ci, codes_a, rules, plan, segs_all, ft, n_states,
                               [coeff for _, coeff in operands], ci,
                               n_states, total_w, bits)
     parts = torch.empty(p_pad, dtype=torch.float32, device=dev)
+    count("windows", _cdiv(p_pad, ft))
     for t, f0 in enumerate(range(0, p_pad, ft)):
         w = min(ft, p_pad - f0)
         aa_t = (window_onehot(codes_a, f0, w, n_states, bits, rows,
@@ -972,15 +981,20 @@ def _block_scores_v2(ci, yi, vi, iid, codes_a, yv_a, valid_a, n_real,
     """Scores (p_pad,) float32 contributed by ONE focal block (v2); with
     ``bits`` and ``rows`` over codes read as :func:`_match_rows` reads
     them (JAX's ``_relief_discrete_block_v2g``)."""
+    count("focal_blocks")
+    dev = ci.device
     if match is None:
-        match = _match_rows(ci, codes_a, ft, n_states, bits, rows)
-    D = (_unpacked_width(codes_a, bits) - match).to(torch.float32)
-    rules = pair_weight_rules(
-        D, yi, vi, iid, yv_a, valid_a, n_real, class_probs,
-        algo=algo, use_star=use_star, k=k)
-    return _accumulate_plan(ci, codes_a, rules, plan, segs_all, ft,
-                            n_states, use_star, onehot_t=onehot_t,
-                            bits=bits, rows=rows)
+        with span("discrete.pass1", device=dev):
+            match = _match_rows(ci, codes_a, ft, n_states, bits, rows)
+    with span("weight_rules", device=dev):
+        D = (_unpacked_width(codes_a, bits) - match).to(torch.float32)
+        rules = pair_weight_rules(
+            D, yi, vi, iid, yv_a, valid_a, n_real, class_probs,
+            algo=algo, use_star=use_star, k=k)
+    with span("discrete.pass2", device=dev):
+        return _accumulate_plan(ci, codes_a, rules, plan, segs_all, ft,
+                                n_states, use_star, onehot_t=onehot_t,
+                                bits=bits, rows=rows)
 
 
 def _build_onehot(cpad, ft, n_states):
@@ -1160,18 +1174,20 @@ def _run_v2_gather(codes, y, layout, n, n_states, class_probs,
         raise ValueError(f"a feature tile of {ft} codes is not whole bytes "
                          f"of {per} packed codes")
     dev = codes_a.device
-    rows = torch.zeros(n_pad, dtype=torch.int64, device=dev)
-    rows[:n] = torch.as_tensor(perm, device=dev)
-    yv, valid = _sorted_labels(y[:n], perm, n_pad, dev)
-    plan_of, segs_all, cp, n_real = _v2_context(layout, n, class_probs, dev,
-                                                algo, use_star)
+    with span("discrete.layout", device=dev):
+        rows = torch.zeros(n_pad, dtype=torch.int64, device=dev)
+        rows[:n] = torch.as_tensor(perm, device=dev)
+        yv, valid = _sorted_labels(y[:n], perm, n_pad, dev)
+        plan_of, segs_all, cp, n_real = _v2_context(
+            layout, n, class_probs, dev, algo, use_star)
     p_raw = _unpacked_width(codes_a, bits)
     work = float(ti) * n_pad * p_raw
     total = torch.zeros(p_raw, dtype=torch.float64, device=dev)
     for b, pos in enumerate(block_class):
         blk = slice(b * ti, (b + 1) * ti)
         ci = codes_a[rows[blk]]
-        with phase("relief_discrete.gather_pass1", work=work):
+        with phase("relief_discrete.gather_pass1", work=work), \
+                span("discrete.pass1", device=dev):
             match = _match_rows(ci, codes_a, ft, n_states, bits, rows)
         with phase("relief_discrete.gather_pass2", work=work):
             total += _block_scores_v2(
@@ -1207,20 +1223,26 @@ def _run_v2(codes, y, layout, n, p, n_states, class_probs,
                               ft=ft)
     _, perm, _, block_class, n_pad = layout
     p_pad = _round_up(p, ft)
-    if route == "promote":
-        cpad = _promote_packed_sorted(codes, perm, n_pad, p_pad)
-        codes.consume()
-        yv, valid = _sorted_labels(y[:n], perm, n_pad, cpad.device)
-    else:
-        cpad, yv, valid = _apply_layout(codes, y[:n], perm, n_pad, p_pad)
-    dev = cpad.device
-    plan_of, segs_all, cp, n_real = _v2_context(layout, n, class_probs, dev,
-                                                algo, use_star)
+    dev = (codes.packed if packed else codes).device
+    with span("discrete.layout", device=dev):
+        if route == "promote":
+            cpad = _promote_packed_sorted(codes, perm, n_pad, p_pad)
+            codes.consume()
+            yv, valid = _sorted_labels(y[:n], perm, n_pad, dev)
+        else:
+            cpad, yv, valid = _apply_layout(codes, y[:n], perm, n_pad, p_pad)
+        plan_of, segs_all, cp, n_real = _v2_context(
+            layout, n, class_probs, dev, algo, use_star)
 
     onehot_t = match = None
     if _sym_zone(n_pad, p, n_states):
-        match = _match_matrix_sym(_build_onehot(cpad, ft, n_states), ti)
-        onehot_t = _build_onehot_t(cpad, ft, n_states)
+        with span("discrete.layout", device=dev):
+            hot = _build_onehot(cpad, ft, n_states)
+        with span("discrete.pass1", device=dev):
+            match = _match_matrix_sym(hot, ti)
+        del hot   # freed before the transposed one-hot is built
+        with span("discrete.layout", device=dev):
+            onehot_t = _build_onehot_t(cpad, ft, n_states)
     total = torch.zeros(p_pad, dtype=torch.float64, device=dev)
     for b, pos in enumerate(block_class):
         rows = slice(b * ti, (b + 1) * ti)

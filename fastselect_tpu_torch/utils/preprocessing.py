@@ -27,8 +27,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .logging import phase
-from .staging import Times, column_chunk, stager
+from .logging import phase, span
+from .staging import column_chunk, stager
 
 # Sort at most this many elements at a time: a column sort holds the
 # sorted values and their int64 indices, about 3x the chunk's bytes.
@@ -189,16 +189,14 @@ def analyze_features_staged(x: np.ndarray, discrete_limit: int, *,
     codes = torch.empty((n, p), dtype=torch.int8, device=device)
     n_unique = torch.empty(p, dtype=torch.int64, device=device)
     ranges = torch.empty(p, dtype=torch.float32, device=device)
-    times = Times(device)
     with phase("staging.analyze", work=n * p):
         chunks = stager(device).stage(
-            (x[:, f0:f0 + f_chunk] for f0 in starts), dtype, times)
+            (x[:, f0:f0 + f_chunk] for f0 in starts), dtype)
         for f0, xc in zip(starts, chunks):
-            with times.device("analysis"):
+            with span("staging.analysis", device=device):
                 xc = xc.to(torch.float32)
                 sl = slice(f0, f0 + xc.shape[1])
                 x_dev[:, sl] = xc
                 n_unique[sl], ranges[sl], codes[:, sl] = _column_stats(
                     xc, with_codes=True)
-        times.log()
         return _analysis(x_dev, codes, n_unique, ranges, discrete_limit)

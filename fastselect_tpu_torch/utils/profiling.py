@@ -9,9 +9,9 @@ Counterpart of ``fastselect_tpu/utils/profiling.py``:
   reset before the timed fit);
 * ``trace``      — a ``torch.profiler`` trace of a region (CPU, and CUDA
   where there is a card), written as a Chrome trace;
-* ``device_kind`` / ``peaks`` / ``roofline`` / ``vpu_peak_tops`` — the
-  card's published peaks, so that a rate can be stated as a share of its
-  roofline.  An unknown card gives None.
+* ``device_kind`` / ``peaks`` — the card's published peaks, so that a
+  rate can be stated as a share of its roofline.  An unknown card gives
+  None.
 """
 
 from __future__ import annotations
@@ -52,32 +52,6 @@ def peaks(kind: str | None = None) -> Peaks | None:
     """The published peaks of a card by name (default: the first CUDA
     device), None for a card not in ``PEAKS``."""
     return PEAKS.get(device_kind() if kind is None else kind)
-
-
-def roofline(kind: str | None = None) -> tuple[float | None, float | None]:
-    """(peak dense bf16 TFLOP/s, peak device memory GB/s) of the card."""
-    pk = peaks(kind)
-    return (None, None) if pk is None else (pk.bf16_tflops, pk.hbm_gbps)
-
-
-def vpu_peak_tops(kind: str | None = None) -> float | None:
-    """Peak float32 rate outside the tensor cores, T op/s: the ceiling of
-    the continuous Relief kernels (JAX's name: its TPU's vector unit)."""
-    pk = peaks(kind)
-    return None if pk is None else pk.fp32_tflops
-
-
-def continuous_fraction_of_peak(n: int, p: int, seconds: float,
-                                ops_per_element: float = 9.0
-                                ) -> float | None:
-    """Share of the float32 peak reached by a continuous Relief fit: both
-    passes touch n^2 * p elements with about ``ops_per_element``
-    operations (subtract, abs, scale, add in pass 1; the weight multiply
-    and the two-axis sum in pass 2)."""
-    peak = vpu_peak_tops()
-    if peak is None or seconds <= 0:
-        return None
-    return (float(n) * n * p * ops_per_element / seconds) / (peak * 1e12)
 
 
 @dataclass
@@ -190,7 +164,9 @@ def timed_fit(make_estimator, X, y, *, warmup=True,
 def trace(logdir: str):
     """``torch.profiler`` trace of the enclosed region, CPU and (with a
     card) CUDA activity, written to ``logdir/trace.json`` as a Chrome
-    trace; yields the profiler (``key_averages()`` and so on)."""
+    trace; yields the profiler (``key_averages()`` and so on).  With the
+    package's logger at INFO the program's spans (``utils/logging.py``)
+    are nested ``user_annotation`` ranges of the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

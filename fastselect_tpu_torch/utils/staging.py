@@ -19,24 +19,22 @@ from a chunk stays there.  On a CPU device the same loop runs with plain
 copies.  On a CUDA device there is no other route: a buffer that cannot be
 pinned, or a stream that cannot be made, raises.
 
-With the package's logger at INFO the loop sums the seconds of its steps
-(the host casts, by the host clock; the copies, by CUDA events on the side
-stream) and logs them as ``staging.cast`` and ``staging.h2d`` records
-(:func:`..utils.logging.log_seconds`) without synchronising inside it.
+With the package's logger at INFO each step is a span
+(:mod:`..utils.logging`): the host casts ``staging.cast`` by the host
+clock, the copies ``staging.h2d`` by CUDA events on the side stream,
+read where the records are logged, so nothing synchronises inside the
+loop; the counters ``h2d_chunks``, ``h2d_bytes`` and ``pinned_allocs``
+count the chunks, their bytes and the pinned buffers allocated.
 """
 
 from __future__ import annotations
 
-import contextlib
-import logging
-import time
 import warnings
-from collections import defaultdict
 
 import numpy as np
 import torch
 
-from .logging import log_seconds, logger
+from .logging import count, span
 
 # Bytes of one chunk (and so of each pinned buffer, which grows only for a
 # wider chunk).  On an H100 the staged analysis slows with more, narrower
@@ -88,51 +86,6 @@ def row_chunks(x: np.ndarray, dtype: torch.dtype):
     return (x[r0:r0 + step] for r0 in range(0, x.shape[0], step))
 
 
-class Times:
-    """Seconds of named steps of a loop, summed over its chunks, kept only
-    while the package's logger is at INFO: host steps by the host clock,
-    device steps by CUDA events on a stream (read once, in :meth:`log`),
-    device steps on the CPU by the host clock."""
-
-    def __init__(self, device: torch.device):
-        self.on = logger.isEnabledFor(logging.INFO)
-        self.cuda = device.type == "cuda"
-        self.seconds = defaultdict(float)
-        self.events = defaultdict(list)
-
-    @contextlib.contextmanager
-    def host(self, name: str):
-        if not self.on:
-            yield
-            return
-        t0 = time.perf_counter()
-        yield
-        self.seconds[name] += time.perf_counter() - t0
-
-    @contextlib.contextmanager
-    def device(self, name: str, stream=None):
-        if not (self.on and self.cuda):
-            with self.host(name):
-                yield
-            return
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        yield
-        end.record(stream)
-        self.events[name].append((start, end))
-
-    def log(self, prefix: str = "staging") -> None:
-        if not self.on:
-            return
-        for name, pairs in self.events.items():
-            pairs[-1][1].synchronize()
-            self.seconds[name] += sum(a.elapsed_time(b)
-                                      for a, b in pairs) / 1e3
-        for name, sec in self.seconds.items():
-            log_seconds(f"{prefix}.{name}", sec)
-
-
 class Stager:
     """Two reusable host buffers (pinned for a CUDA device) and a side
     stream for copies to one device; see the module's docstring."""
@@ -154,11 +107,13 @@ class Stager:
         buf = self.buffers[slot]
         if buf is None or buf.numel() < nbytes:
             self.buffers[slot] = None   # free the old one first
+            if self.cuda:
+                count("pinned_allocs")
             buf = self.buffers[slot] = torch.empty(
                 nbytes, dtype=torch.uint8, pin_memory=self.cuda)
         return buf
 
-    def stage(self, chunks, dtype: torch.dtype, times: Times | None = None):
+    def stage(self, chunks, dtype: torch.dtype):
         """Each host array of ``chunks`` (any strides) as a tensor of
         ``dtype`` on the device, in order, ready on the current stream:
         the host casts the next chunk while this one is copied.  A chunk is
@@ -168,7 +123,6 @@ class Stager:
             raise RuntimeError("a staging loop is already running on "
                                f"{self.device}")
         self.busy = True
-        times = times or Times(self.device)
         size = _itemsize(dtype)
         try:
             for k, src in enumerate(chunks):
@@ -176,10 +130,12 @@ class Stager:
                 nbytes = src.size * size
                 host = self._buffer(slot, nbytes)[:nbytes].view(dtype).view(
                     src.shape)
-                with times.host("cast"):
+                count("h2d_chunks")
+                count("h2d_bytes", nbytes)
+                with span("staging.cast"):
                     cast_into(host, src)
                 if not self.cuda:
-                    with times.host("h2d"):
+                    with span("staging.h2d"):
                         chunk = host.clone()
                     yield chunk
                     continue
@@ -187,7 +143,7 @@ class Stager:
                 with torch.cuda.stream(self.stream):
                     chunk = torch.empty(src.shape, dtype=dtype,
                                         device=self.device)
-                    with times.device("h2d", self.stream):
+                    with span("staging.h2d", device=self.device):
                         chunk.copy_(host, non_blocking=True)
                     self.copied[slot].record(self.stream)
                 compute.wait_event(self.copied[slot])
@@ -216,12 +172,10 @@ def upload(x: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
     a chunk of rows at a time through :func:`stager`."""
     device = torch.device(device)
     out = torch.empty(x.shape, dtype=dtype, device=device)
-    times = Times(device)
     r0 = 0
-    for chunk in stager(device).stage(row_chunks(x, dtype), dtype, times):
+    for chunk in stager(device).stage(row_chunks(x, dtype), dtype):
         out[r0:r0 + chunk.shape[0]] = chunk
         r0 += chunk.shape[0]
-    times.log()
     return out
 
 

@@ -65,17 +65,14 @@ def test_timed_fit_reads_device_peaks(monkeypatch, rng):
 
 
 def test_peaks_by_card_name(monkeypatch):
-    assert profiling.roofline(H100) == (989.0, 3350.0)
-    assert profiling.vpu_peak_tops(H100) == 67.0
+    assert profiling.peaks(H100) == (989.0, 1979.0, 67.0, 3350.0)
     assert profiling.peaks(H100).int8_tops == 1979.0
     for unknown in ("NVIDIA A100-SXM4-80GB", "TPU v5 lite", "cpu"):
-        assert profiling.roofline(unknown) == (None, None)
-        assert profiling.vpu_peak_tops(unknown) is None
+        assert profiling.peaks(unknown) is None
     assert profiling.device_kind() == "cpu"          # no card here
-    assert profiling.continuous_fraction_of_peak(1000, 100, 1.0) is None
+    assert profiling.peaks() is None
     monkeypatch.setattr(profiling, "device_kind", lambda: H100)
-    frac = profiling.continuous_fraction_of_peak(1000, 100, 1.0)
-    assert frac == pytest.approx(1000 ** 2 * 100 * 9.0 / 67e12)
+    assert profiling.peaks() == profiling.PEAKS[H100]
 
 
 def test_chip_smoke_takes_its_peaks_from_profiling():
@@ -134,10 +131,25 @@ def test_engines_log_their_phases(info_log, rng):
     rd.relief_discrete_scores(codes.astype(np.float32), y, algo="relieff",
                               n_neighbors=3)
     names = [r.getMessage().split(":")[0] for r in info_log.records]
-    assert names == ["relief_cuda.engine[multisurf]", "relief_discrete.h2d",
-                     "relief_discrete.engine[surf]",
-                     "relief_discrete.encode",
-                     "relief_discrete.engine[relieff]"]
+    phases = [n for n in names if n.startswith("relief_")]
+    assert phases == ["relief_cuda.engine[multisurf]", "relief_discrete.h2d",
+                      "relief_discrete.engine[surf]",
+                      "relief_discrete.encode",
+                      "relief_discrete.engine[relieff]"]
+    # the fit's spans, and those each engine phase holds, logged before it
+    assert names[:names.index("relief_discrete.h2d")] == [
+        "fused.pass1", "weight_rules", "fused.pass2",
+        "relief_cuda.engine[multisurf]", "fit[MultiSURF]", "fit.validate",
+        "fit.analysis", "fit.score", "fused.plan", "fit.select"]
+    for engine in ("relief_discrete.engine[surf]",
+                   "relief_discrete.engine[relieff]"):
+        i = names.index(engine)
+        assert names[i - 3:i] == ["discrete.pass1", "weight_rules",
+                                  "discrete.pass2"]
+    assert set(names) - set(phases) == {
+        "fused.pass1", "weight_rules", "fused.pass2", "fit[MultiSURF]",
+        "fit.validate", "fit.analysis", "fit.score", "fused.plan",
+        "fit.select", "discrete.pass1", "discrete.pass2"}
 
 
 def test_engines_log_the_v2_phase(monkeypatch, info_log, rng):
@@ -147,7 +159,13 @@ def test_engines_log_the_v2_phase(monkeypatch, info_log, rng):
     rd.relief_discrete_scores(None, y, algo="multisurf",
                               codes=torch.from_numpy(codes))
     names = [r.getMessage().split(":")[0] for r in info_log.records]
-    assert names == ["relief_discrete.engine_v2[multisurf]"]
+    assert [n for n in names if n.startswith("relief_")] == [
+        "relief_discrete.engine_v2[multisurf]"]
+    # the phase's spans in order of first opening (the symmetric tier:
+    # the one-hot, pass 1's match matrix, then each focal block's rules
+    # and pass 2), then the phase itself
+    assert names == ["discrete.layout", "discrete.pass1", "weight_rules",
+                     "discrete.pass2", "relief_discrete.engine_v2[multisurf]"]
 
 
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path, rng):

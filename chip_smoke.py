@@ -164,9 +164,10 @@ Phases, one or two lines each on stdout:
     pageable copy of them, and the copy seconds of phases 5 (large-p, now
     staged), 7 and 24 (gwas-promote's packed staging).  Its numbers go on
     the fits line and on a ``staging:`` line before the JSON summary;
-26. completeness, after staging: (a) ReliefF's weight rule (one stable
-    sort of each focal row) on phase 9's large-n input (the continuous
-    kernels), phase 8's v1 tier (3,000 x 5,000 genotypes, 3 classes: the
+26. completeness, after staging: (a) ReliefF's weight rule (the
+    neighbour-pick kernel on the fused engine, one stable sort of each
+    focal row on the discrete one) on phase 9's large-n input (the
+    continuous kernels and ``relieff_weights``), phase 8's v1 tier (3,000 x 5,000 genotypes, 3 classes: the
     discrete engine) and phase 6's 150-state mixed input (the ``MIXED``
     kernels), first and two warm fits with their peak memory, then one
     fit under ``utils.profiling.trace`` with the rule in a
@@ -204,7 +205,18 @@ Phases, one or two lines each on stdout:
     one-hot, the twin itself) and its bound in bytes.  Phases 7, 8 and
     24 set the window kernels' counts (``relief_discrete.launches``) to
     0 before their fits and read them after: both kernels must launch in
-    each.
+    each;
+28. relieff, after phases 4-6: ReliefF's neighbour-pick kernel
+    (``csrc/relieff_select.cu``, ``ops/relief.py:relieff_weights``)
+    against its twin, the sort chain ``_sum_rules(_rules_relieff(...))``,
+    bit for bit and the same over two launches: on pass 1's D of large-n's
+    first focal block (2,944 x 50,048 on the H100, k = 10, 2 classes) and
+    on ``RELIEFF_CASES`` (tie-heavy integer distances with padded focal
+    rows from row 47,104, 60 classes, 70 classes (nine groups of labels),
+    k = 100, a class of 5 members, labels past class_probs, zeros of
+    either sign).  Each timed with CUDA events (mean of 10): the whole
+    call, the kernel's launch alone, and the sort chain (``library_ms``,
+    mean of 3), beside the bound (8 B a pair at 3.35 TB/s).
 
 Phases 14-20 print their first and warm fit times, int8 GEMM operations
 (``relief_discrete.gemm_ops``) and rate, peak device memory, the host
@@ -238,7 +250,7 @@ must launch the continuous kernels and the int8 GEMMs and no ``MIXED``
 kernel, and is held against the fused engine with the ``MIXED`` kernels
 on the same rows in the hybrid's order.  Any failed check raises, so the
 script exits non-zero; it also fails when no CUDA device is present.  The
-line before the last is a JSON summary of the six kernels (launches,
+line before the last is a JSON summary of the seven kernels (launches,
 errors, times, bounds and registers, per timed shape; the window
 kernels' launches are phase 7's, with phases 7, 8 and 24 apart under
 ``phase_launches``); the last line is ``{"ok": true, "device": {...}}``.
@@ -308,7 +320,13 @@ WINDOW_KERNELS = {
     "window_partials": ("fastselect_tpu_torch/csrc/relief_discrete.cu",
                         "fastselect_tpu/ops/relief_discrete.py:596"),
 }
-# __global__ functions of each of the six kernels, as ptxas names them
+# ReliefF's neighbour-pick kernel (``relief_cuda.launches``) -> (source,
+# the JAX code it stands for: XLA's sort inside the rule, no Pallas kernel)
+RULE_KERNELS = {
+    "relieff_weights": ("fastselect_tpu_torch/csrc/relieff_select.cu",
+                        "fastselect_tpu/ops/relief.py:_rules_relieff"),
+}
+# __global__ functions of each of the seven kernels, as ptxas names them
 # (mangled: pass 1's kind template has the instances ILb0 and ILb1)
 KERNEL_FUNCTIONS = {"relief_pass1_cont": ("dist_kernelILb0",
                                           "split_sum_kernel"),
@@ -318,7 +336,8 @@ KERNEL_FUNCTIONS = {"relief_pass1_cont": ("dist_kernelILb0",
                     "relief_pass2_mixed": ("accum_kernel_mixed",),
                     "window_onehot": ("onehot_kernel", "onehot_t_kernel"),
                     "window_partials": ("partials_kernel",
-                                        "partials_finish_kernel")}
+                                        "partials_finish_kernel"),
+                    "relieff_weights": ("relieff_select_kernel",)}
 # pass 1 of either kind must equal its plain version bit for bit
 SCORE_RTOL = 1e-3    # pass 2 against its plain version, relative to max|s|
 FIT_ATOL = 1e-4      # fitted scores against the plain-pass engine
@@ -2804,21 +2823,28 @@ def trace_device_s(path, name):
 
 def rules_device_s(make, X, y, logdir):
     """One fit of ``make()`` under ``utils.profiling.trace`` with ReliefF's
-    weight rule in a ``record_function`` range: (device seconds of what
-    the rule launched, device seconds of all the fit launched), from the
-    trace (zeros on the CPU)."""
-    orig = relief_mod._rules_relieff
+    weight rule in a ``record_function`` range (``relieff_weights`` on the
+    fused engine, ``_rules_relieff`` on the others): (device seconds of
+    what the rule launched, device seconds of all the fit launched), from
+    the trace (zeros on the CPU)."""
+    names = [name for name in ("relieff_weights", "_rules_relieff")
+             if hasattr(relief_mod, name)]   # an older tree has one rule
+    orig = {name: getattr(relief_mod, name) for name in names}
 
-    def ranged(*a, **k):
-        with torch.profiler.record_function(RULES_RANGE):
-            return orig(*a, **k)
+    def ranged(fn):
+        def call(*a, **k):
+            with torch.profiler.record_function(RULES_RANGE):
+                return fn(*a, **k)
+        return call
 
-    relief_mod._rules_relieff = ranged
+    for name in names:
+        setattr(relief_mod, name, ranged(orig[name]))
     try:
         with profiling.trace(str(logdir)):
             make().fit(X, y)
     finally:
-        relief_mod._rules_relieff = orig
+        for name in names:
+            setattr(relief_mod, name, orig[name])
     return trace_device_s(Path(logdir) / "trace.json", RULES_RANGE)
 
 
@@ -2948,8 +2974,8 @@ def completeness_phase(dev, X_n, y_n, X_mf, y_mf, large_n_scores, refs,
     must launch.  Returns (numbers, launches)."""
     t0 = time.perf_counter()
     rc.reset_launch_counts()
-    cont = ("relief_pass1_cont", "relief_pass2_cont")
-    mixed = ("relief_pass1_mixed", "relief_pass2_mixed")
+    cont = ("relief_pass1_cont", "relief_pass2_cont", "relieff_weights")
+    mixed = ("relief_pass1_mixed", "relief_pass2_mixed", "relieff_weights")
     res = {"large-n": relieff_rule_fits(
         dev, "large-n", lambda: ReliefF(n_features_to_select=10,
                                         n_neighbors=10), X_n, y_n, cont,
@@ -3453,6 +3479,149 @@ def window_phase(dev, windows=WINDOWS):
 
 
 # ---------------------------------------------------------------------------
+# ReliefF's neighbour-pick kernel
+# ---------------------------------------------------------------------------
+
+def relieff_block(dev, kind, t, n, n_real, row0, ncls, seed, few=None,
+                  n_probs=None):
+    """A focal block of ReliefF's rule on ``dev``: (D, yi, vi, iid, y_flat,
+    valid_flat, class_probs), rows [row0, row0 + t) of n samples (those
+    past n_real padding: label -1, validity 0).  D is ``integer`` (0..39,
+    ties everywhere), ``quantised`` (steps of 1/4), ``signed-zeros``
+    (0..5, zeros of either sign) or ``float``; ``few`` members of the last
+    class; ``n_probs`` cuts class_probs to that many classes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "float":
+        D = torch.rand((t, n), generator=g, device=dev) * 40
+    else:
+        top = {"integer": 40, "quantised": 160, "signed-zeros": 6}[kind]
+        D = torch.randint(0, top, (t, n), generator=g, device=dev).float()
+        if kind == "quantised":
+            D /= 4
+        if kind == "signed-zeros":
+            flip = torch.rand((t, n), generator=g, device=dev) < 0.5
+            D = torch.where((D == 0) & flip, -0.0, D)
+    rng = np.random.RandomState(seed)
+    y = np.full(n, -1, np.int64)
+    y[:n_real] = rng.randint(0, ncls, n_real)
+    if few is not None:
+        y[:n_real][y[:n_real] == ncls - 1] = 0
+        y[rng.choice(n_real, few, replace=False)] = ncls - 1
+    cp = (np.bincount(y[:n_real], minlength=ncls) / n_real).astype(np.float32)
+    if n_probs is not None:
+        cp = np.zeros(n_probs, np.float32)
+    y_t = torch.from_numpy(y).to(dev)
+    valid = (y_t >= 0).float()
+    rows = torch.arange(row0, row0 + t, device=dev)
+    return (D, y_t[rows], valid[rows], rows, y_t, valid,
+            torch.from_numpy(cp).to(dev))
+
+
+def large_n_block(dev, X, y):
+    """The first focal block of large-n's ReliefF fit: pass 1's D of
+    ``block_plan``'s nb rows against all samples, and the labels the
+    engine stages."""
+    n, p = X.shape
+    y_enc = np.unique(y, return_inverse=True)[1]
+    cp = (np.bincount(y_enc) / n).astype(np.float32)
+    plan = rc.block_plan(n, p, dev, "relieff")
+    recip = (1.0 / np.maximum(X.max(0) - X.min(0), 1e-30)).astype(np.float32)
+    fl = rc.stage_fused(torch.from_numpy(X), y_enc, recip, np.zeros(p, bool),
+                        cp, dev, plan.n_pad, plan.p_pad)
+    nb = plan.nb
+    D = rc.dist_matrix(fl.xp, fl.recip, fl.disc, xi=fl.xp[:nb], mixed=False)
+    return (D, fl.yv[:nb], fl.valid[:nb], torch.arange(nb, device=dev),
+            fl.yv, fl.valid, fl.class_probs)
+
+
+# phase 28's synthetic cases: (label, D kind, rows, samples, real samples,
+# first row, classes, k, few, class_probs entries), at large-n's block
+# where the shape matters
+RELIEFF_CASES = (
+    ("tie-heavy, padded rows", "integer", 2944, 50048, 50000, 47104, 3, 10,
+     None, None),
+    ("60 classes", "quantised", 2944, 50048, 50000, 0, 60, 10, None, None),
+    ("70 classes (nine groups)", "integer", 1024, 50048, 50000, 5000, 70, 10,
+     None, None),
+    ("k = 100", "float", 2944, 50048, 50000, 0, 2, 100, None, None),
+    ("few members", "integer", 2944, 50048, 50000, 0, 3, 10, 5, None),
+    ("labels past class_probs", "quantised", 2944, 50048, 50000, 0, 3, 10,
+     None, 1),
+    ("signed zeros", "signed-zeros", 2944, 50048, 50000, 0, 2, 10, None,
+     None),
+)
+
+
+def relieff_bound_ms(t, n, n_classes):
+    """The least time of one launch on an H100 at 700 W: D read once and W
+    written once (8 B a pair), the labels and row operands besides."""
+    nbytes = 8 * t * n + 4 * n + t * (4 + 8 + 4 + 4 * (n_classes + 1))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def relieff_kernel_phase(dev, large_n, cases=RELIEFF_CASES, reps=10):
+    """Phase 28: ReliefF's neighbour-pick kernel (``relieff_weights``)
+    against its twin, the sort chain ``_sum_rules(_rules_relieff(...))``,
+    bit for bit on the card: at ``large_n`` (a focal block from
+    :func:`large_n_block`) and on ``cases``; two launches equal.  Then
+    each timed (CUDA events, mean of ``reps``): the whole call, the
+    kernel's launch alone and the sort chain (``library_ms``), beside the
+    bound.  Returns the timed rows."""
+    t0 = time.perf_counter()
+    before = rc.launches["relieff_weights"]
+    blocks = [("large-n block", large_n, 10)] + [
+        (label, relieff_block(dev, kind, t, n, n_real, row0, ncls,
+                              seed=28 + i, few=few, n_probs=n_probs), k)
+        for i, (label, kind, t, n, n_real, row0, ncls, k, few, n_probs)
+        in enumerate(cases)]
+    rows = []
+    for label, args, k in blocks:
+        D, yi, vi, iid, y, valid, cp = args
+        t, n = D.shape
+        got = relief_mod.relieff_weights(*args[:6], k, cp)
+        again = relief_mod.relieff_weights(*args[:6], k, cp)
+        twin = relief_mod._sum_rules(relief_mod._rules_relieff(
+            *args[:6], k, cp))
+        equal = torch.equal(got.view(torch.int32), twin.view(torch.int32))
+        diff = int((got.view(torch.int32) != twin.view(torch.int32)).sum())
+        check(equal, f"relieff_weights {label}: {diff} values differ from "
+              f"the twin")
+        check(torch.equal(got, again), f"relieff_weights {label}: launches "
+              f"differ")
+        picks = int((got != 0).sum())
+        del again, twin
+        ops = relief_mod._relieff_select_operands(
+            *args[:4], relief_mod.relieff_labels(y, valid), k, cp)
+        iid64, vi32 = iid.to(torch.int64), vi.float()
+        ms = cuda_ms(lambda: relief_mod.relieff_weights(*args[:6], k, cp),
+                     reps)
+        kernel_ms = cuda_ms(lambda: relief_mod._relieff_launch(
+            D, ops[0], ops[1], iid64, vi32, ops[2], k), reps)
+        chain_ms = cuda_ms(lambda: relief_mod._sum_rules(
+            relief_mod._rules_relieff(*args[:6], k, cp)), min(reps, 3))
+        bound = relieff_bound_ms(t, n, cp.shape[0])
+        rows.append(dict(shape=f"{label}: {t}x{n}, {cp.shape[0]} classes, "
+                               f"k {k}", ms=ms, kernel_ms=kernel_ms,
+                         plain_ms=chain_ms, library_ms=chain_ms,
+                         bound_ms=bound, bound_by="bytes",
+                         share=bound / kernel_ms, picks=picks,
+                         max_abs_err=0.0))
+        print(f"relieff_weights {label} ({t}x{n}, {cp.shape[0]} classes, k "
+              f"{k}, {picks} picks): equal to the sort chain bit for bit; "
+              f"call {ms:.4f} ms, kernel {kernel_ms:.4f} ms, sort chain "
+              f"{chain_ms:.4f} ms, bound {bound:.4f} ms (bytes), "
+              f"{100 * bound / kernel_ms:.1f}% of it", flush=True)
+        del got, ops, args, D
+        torch.cuda.empty_cache()
+    moved = rc.launches["relieff_weights"] - before
+    check(dev.type != "cuda" or moved > 0,
+          f"phase 28: relieff_weights launched {moved} times")
+    print(f"relieff kernel: phase {time.perf_counter() - t0:.2f} s on {SMI}",
+          flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     t_start = time.perf_counter()
@@ -3547,6 +3716,8 @@ def main():
                      for k in rc.launches}
     for name in KERNELS:
         check(main_launches[name] > 0, f"{name} launched on the main path")
+    # 28. ReliefF's neighbour-pick kernel against the sort chain, timed
+    rule_timing = relieff_kernel_phase(dev, large_n_block(dev, X_n, y_n))
 
     # 21. the mesh: large-n through the automatic route (the continuous
     # kernels on every shard), the 150-state mixed input called directly
@@ -3762,6 +3933,16 @@ def main():
          "registers": [regs for _, regs, _ in ptxas[name]],
          "spill_bytes": [spill for _, _, spill in ptxas[name]]}
         for name, (src, rep) in WINDOW_KERNELS.items()]
+    summary["kernels"] += [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "completeness_launches": complete_launches[name],
+         **{k: rule_timing[0][k] for k in (
+             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")},
+         "shape": rule_timing[0]["shape"], "shapes": rule_timing,
+         "registers": [regs for _, regs, _ in ptxas[name]],
+         "spill_bytes": [spill for _, _, spill in ptxas[name]]}
+        for name, (src, rep) in RULE_KERNELS.items()]
     print(f"fits: large-n {fit_n:.4f} s, large-p {fit_p:.4f} s, mixed "
           f"{fit_m:.4f} s, mixed-fused {fit_mf:.4f} s, mixed-xl "
           f"{fit_xl:.4f} s (warm {', '.join(f'{t:.4f}' for t in warm_xl)} "

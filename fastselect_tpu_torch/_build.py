@@ -60,6 +60,8 @@ _SIGNATURES = {
     # n_rows, w, wp, n_states, total_w, partial, spans, span, out, stream
     "fs_window_partials": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _I, _I, _P, _P),
+    # d, lab, yi, iid, vi, vals, w, rows, n, n_classes, k, stream
+    "fs_relieff_weights": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -20,7 +20,9 @@ engine makes two passes over the data with weights in between:
 The passes live in ``relief_cuda.py`` (any data), ``relief_discrete.py``
 (all-discrete data) and ``relief_hybrid.py`` (mixed data, both halves);
 this module holds the rules, which are plain tensor code on D's device,
-and the routing between the engines.  Every rule returns a list of
+and the routing between the engines.  On the fused engine ReliefF's W
+comes from one kernel instead (:func:`relieff_weights`,
+``csrc/relieff_select.cu``), equal to its rule's bit for bit.  Every rule returns a list of
 ``(boolean mask (T, n), per-row coefficient (T,))`` terms with
 ``W = sum_k r_k[:, None] * M_k``.  Statistics stay in float32, as in the
 JAX engines: promoting them would move thresholds and flip near masks.
@@ -144,26 +146,126 @@ def _rules_relieff(D, yi, vi, iid, y_flat, valid_flat, k, class_probs):
     pick = torch.zeros_like(pick_s).scatter_(1, sidx, pick_s)
     del pick_s, sidx
 
-    # k nearest hits at weight -1/h_found; the hits are the focal row's
-    # label, also one past class_probs (the op-level default of one dummy
-    # class)
+    hit_norm, w = _relieff_coefficients(n_hit, yi, k, class_probs)
+    rules = [(pick == -1, -hit_norm)]
+    for c in range(n_classes):
+        rules.append(((pick == c + 1) & (yi != c)[:, None], w[:, c]))
+    return rules
+
+
+def _relieff_coefficients(n_hit, yi, k, class_probs):
+    """ReliefF's row coefficients from each focal row's number of hits
+    ``n_hit``: (hit_norm (T,), w (T, C)) float32.  The k nearest hits
+    weigh -hit_norm = -1/h_found; the hits are the focal row's label, also
+    one past class_probs (the op-level default of one dummy class).  The k
+    nearest misses of class c weigh w[:, c] = P(c) / (1 - P(y_i)) / k;
+    labels past class_probs read its last entry, as JAX's clamped gather
+    does."""
+    n_classes = class_probs.shape[0]
     h_found = n_hit.clamp(max=k).to(torch.float32)
     hit_norm = torch.where(h_found > 0,
                            1.0 / torch.clamp_min(h_found, 1.0), 0.0)
-    rules = [(pick == -1, -hit_norm)]
-
-    # k nearest misses per class at weight P(c) / (1 - P(y_i)) / k;
-    # labels past class_probs read its last entry, as JAX's clamped
-    # gather does
     denom = 1.0 - class_probs[yi.clamp(max=n_classes - 1)]
     denom = torch.where(denom == 0, 1.0, denom)
-    for c in range(n_classes):
-        # times float32(1/k): XLA turns the JAX engine's division by the
-        # constant k into this product, and W matches it bit for bit
-        w_c = (class_probs[c] / denom) * (np.float32(1) / np.float32(k))
-        rules.append(((pick == c + 1) & (yi != c)[:, None],
-                      w_c.expand_as(hit_norm)))
-    return rules
+    # times float32(1/k): XLA turns the JAX engine's division by the
+    # constant k into this product, and W matches it bit for bit
+    w = (class_probs[None, :] / denom[:, None]) * (
+        np.float32(1) / np.float32(k))
+    return hit_norm, w
+
+
+# A sample that is no one's neighbour (padding) in the kernel's labels
+_NO_LABEL = -(1 << 31)
+
+
+def relieff_labels(y_flat, valid_flat):
+    """The per-fit half of ``csrc/relieff_select.cu``'s operands: (lab (n,)
+    int32, the samples' labels with ``_NO_LABEL`` where invalid; lab
+    sorted, from which each focal row's hits are counted).  The engine
+    makes them once a fit and hands them to every focal block's
+    :func:`relieff_weights`."""
+    lab = torch.where(valid_flat > 0, y_flat, _NO_LABEL).to(torch.int32)
+    return lab, torch.sort(lab)[0]
+
+
+def _relieff_select_operands(D, yi, vi, iid, labels, k, class_probs):
+    """What ``csrc/relieff_select.cu`` reads beside D, on D's device:
+    (lab (n,) int32 of :func:`relieff_labels`; yi (T,) int32; vals (T,
+    C + 1) float32, the value W takes on a pick of each slot: class c's
+    miss weight in slot c, the hit weight in the focal row's own label's
+    slot (slot C for a label past class_probs)).
+
+    The row coefficients are :func:`_rules_relieff`'s, from the same
+    :func:`_relieff_coefficients`; each value is 0.0 plus its coefficient,
+    as :func:`_sum_rules` adds it to a zero W, so the kernel's W equals
+    the plain version's bit for bit.  A focal row's hits are counted in
+    the sorted labels (no (T, n) pass): the valid samples of its label,
+    less itself."""
+    n, n_classes = D.shape[1], class_probs.shape[0]
+    lab, ordered = labels
+    y32 = yi.to(torch.int32)
+    n_lab = (torch.searchsorted(ordered, y32, right=True)
+             - torch.searchsorted(ordered, y32))
+    own = (iid < n) & (lab[iid.clamp(max=n - 1)] == y32)
+    n_hit = torch.where(vi > 0, n_lab - own.to(n_lab.dtype), 0)
+    hit_norm, w = _relieff_coefficients(n_hit, yi, k, class_probs)
+    coef = torch.cat([w, torch.zeros_like(w[:, :1])], dim=1)
+    own_slot = torch.where((yi >= 0) & (yi < n_classes), yi, n_classes)
+    coef.scatter_(1, own_slot[:, None], -hit_norm[:, None])
+    return lab, y32.contiguous(), torch.zeros_like(coef) + coef
+
+
+def relieff_weights(D, yi, vi, iid, y_flat, valid_flat, k, class_probs,
+                    labels=None):
+    """ReliefF's pair weights W (T, n) float32 of one focal block:
+    ``_sum_rules(_rules_relieff(...))``, bit for bit.
+
+    On a CPU tensor that chain is what runs.  On a CUDA tensor one launch
+    of ``csrc/relieff_select.cu`` selects each label's k nearest members
+    of every row and writes W from D (no sort; 8 B a pair of device
+    memory, D and W), after the row coefficients of
+    :func:`_relieff_select_operands` in PyTorch; anything else raises.
+    ``relief_cuda.launches["relieff_weights"]`` counts the launches.
+    ``labels`` is :func:`relieff_labels` of (y_flat, valid_flat), made
+    here when not given.  Labels are >= -1 (padding), as the engines stage
+    them."""
+    if D.device.type == "cpu":
+        return _sum_rules(_rules_relieff(D, yi, vi, iid, y_flat, valid_flat,
+                                         k, class_probs))
+    if D.device.type != "cuda":
+        raise ValueError(f"unsupported device {D.device}")
+    T, n = D.shape
+    if (D.dtype != torch.float32 or not D.is_contiguous() or n % 4
+            or D.data_ptr() % 16):
+        raise ValueError(
+            f"relieff_weights takes a contiguous float32 D with 16-byte "
+            f"aligned rows (n a multiple of 4); got {D.dtype}, {T}x{n}")
+    if k < 1 or yi.shape != (T,) or y_flat.shape != (n,):
+        raise ValueError(f"k >= 1, yi ({T},) and y_flat ({n},) expected")
+    if labels is None:
+        labels = relieff_labels(y_flat, valid_flat)
+    lab, y32, vals = _relieff_select_operands(D, yi, vi, iid, labels, k,
+                                              class_probs)
+    return _relieff_launch(D, lab, y32, iid.to(torch.int64).contiguous(),
+                           vi.to(torch.float32).contiguous(), vals, k)
+
+
+def _relieff_launch(D, lab, y32, iid, vi, vals, k):
+    """W from one launch of ``csrc/relieff_select.cu`` on the operands of
+    :func:`_relieff_select_operands` (iid int64, vi float32)."""
+    from .. import _build
+    from .relief_cuda import launches
+    T, n = D.shape
+    W = torch.empty_like(D)
+    with torch.cuda.device(D.device):
+        err = _build.load().fs_relieff_weights(
+            D.data_ptr(), lab.data_ptr(), y32.data_ptr(), iid.data_ptr(),
+            vi.data_ptr(), vals.data_ptr(), W.data_ptr(), T, n,
+            vals.shape[1] - 1, int(k),
+            torch.cuda.current_stream(D.device).cuda_stream)
+    _build.check(err, "relieff_weights")
+    launches["relieff_weights"] += 1
+    return W
 
 
 def pair_weight_rules(D, yi, vi, iid, y_flat, valid_flat, n_real,
@@ -208,6 +310,8 @@ def relief_engine_core(x_f, yv_f, valid_f, row0, x_a, yv_a, valid_a,
     mixed = n_disc > 0
     dev = x_a.device
     scores = torch.zeros(x_a.shape[1], dtype=torch.float32, device=dev)
+    if algo == "relieff":
+        labels = relieff_labels(yv_a, valid_a)
     for b0 in range(0, x_f.shape[0], nb):
         count("focal_blocks")
         xi = x_f[b0:b0 + nb]
@@ -215,16 +319,23 @@ def relief_engine_core(x_f, yv_f, valid_f, row0, x_a, yv_a, valid_a,
         with span("fused.pass1", device=dev):
             D = pass1(x_a, recip, disc, xi=xi, mixed=mixed)
         with span("weight_rules", device=dev):
-            rules = pair_weight_rules(
-                D, yv_f[b0:b0 + nb], valid_f[b0:b0 + nb], iid, yv_a,
-                valid_a, n_real, class_probs, algo=algo, use_star=use_star,
-                k=k)
-            del D   # freed before W is summed
-            W = _sum_rules(rules)
-            del rules
+            if algo == "relieff":
+                W = relieff_weights(D, yv_f[b0:b0 + nb], valid_f[b0:b0 + nb],
+                                    iid, yv_a, valid_a, k, class_probs,
+                                    labels)
+                del D
+            else:
+                rules = pair_weight_rules(
+                    D, yv_f[b0:b0 + nb], valid_f[b0:b0 + nb], iid, yv_a,
+                    valid_a, n_real, class_probs, algo=algo,
+                    use_star=use_star, k=k)
+                del D   # freed before W is summed
+                W = _sum_rules(rules)
+                del rules
         with span("fused.pass2", device=dev):
             scores += pass2(x_a, W, recip, disc, xi=xi, mixed=mixed,
                             n_disc=n_disc)
+        del W   # freed before the next block's D
     return scores
 
 

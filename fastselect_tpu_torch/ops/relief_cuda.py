@@ -74,13 +74,14 @@ _PASS2_TARGET_BLOCKS = 1056
 # plus the rules' float32 and bool temporaries (_rules_multisurf holds
 # about six (nb, n_pad) arrays), with headroom.
 _BYTES_PER_PAIR = 32
-# ReliefF's rule holds more: its stable sort keeps float32 values and
-# int64 indices (12 B a pair) and the sort's own scratch beside D, the
-# masked copy of D, the int32 labels, ranks and picks in sorted order and
-# back.  It peaked at 46.3 B a pair at large-n's blocks (2,944 x 50,048
-# pairs) on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 26).
-# The blocks set the order of the float32 score sums, so the constant
-# also fixes the scores' bits.
+# ReliefF's rule on the card (relief.relieff_weights) holds W beside D and
+# nothing else a pair: a large-n fit peaked at 1.1377 GiB, 8.3 B a pair of
+# its 2,944 x 50,048-pair blocks with X and the scores (the benchmark's
+# large-n.relieff on an NVIDIA H100 80GB HBM3 at 700 W), where the sort
+# chain it replaced peaked at 46.3 B.  The constant stays at 64 for its
+# block plan: with 50,048's divisors it gives those 2,944-row blocks (17 a
+# fit), and the blocks set the order of the float32 score sums, so it also
+# fixes the scores' bits.
 _RELIEFF_BYTES_PER_PAIR = 64
 # Share of the device's free memory a focal block may take.
 _FREE_MEM_FRACTION = 0.8
@@ -91,7 +92,8 @@ _CPU_BLOCK_BYTES = 1 << 30
 _REF_CHUNK_ELEMS = 1 << 26
 
 launches = {"relief_pass1_cont": 0, "relief_pass1_mixed": 0,
-            "relief_pass2_cont": 0, "relief_pass2_mixed": 0}
+            "relief_pass2_cont": 0, "relief_pass2_mixed": 0,
+            "relieff_weights": 0}
 counters("launches", launches)
 
 

@@ -27,7 +27,8 @@ MESH = [CPU] * 4
 @pytest.fixture
 def cpu_card(monkeypatch):
     """torch.cuda's timers and memory statistics as no-ops, the plain
-    passes counted as launches, and the auto-route's size gate lowered."""
+    passes and ReliefF's plain rule on the fused engine counted as
+    launches, and the auto-route's size gate lowered."""
     for name in ("synchronize", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, name, lambda *a: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
@@ -40,6 +41,12 @@ def cpu_card(monkeypatch):
             rc.launches[f"relief_pass{_pass}_{kind}"] += 1
             return _orig(*a, **k)
         monkeypatch.setattr(rc, name, counted)
+    rule = relief_mod.relieff_weights
+
+    def counted_rule(*a):
+        rc.launches["relieff_weights"] += 1
+        return rule(*a)
+    monkeypatch.setattr(relief_mod, "relieff_weights", counted_rule)
 
 
 def test_mesh_large_n_and_mixed_rehearse(cpu_card):
@@ -161,5 +168,5 @@ def test_mesh_procs_rehearse(monkeypatch, cpu_card):
               "X_snp": X_snp, "y_snp": y_snp, "X_v2": X_v2, "y_v2": y_v2,
               "X_k3": res["X"], "y_k3": res["y"]},
         stats_shape=(120, 1100), setup=W.rehearse_on_cpu)
-    assert set(launches) == set(rc.launches) and all(launches.values())
+    assert set(launches) == set(cs.KERNELS) and all(launches.values())
     assert not torch.distributed.is_initialized()

@@ -23,8 +23,9 @@ of its own, in the order given, on the inputs of this tree's
 Every fit but gwas-gather's is ``ReliefF(...).fit`` timed first and twice
 warm (gwas-gather's once: its packed codes are drawn once), with its peak
 device memory, then once under ``utils.profiling.trace`` with the weight
-rule (``ops/relief.py:_rules_relieff``) in a ``record_function`` range,
-for the rule's device time.  The scores of each input must be equal across
+rule (``ops/relief.py:relieff_weights`` on the fused engine, where a tree
+has it, and ``_rules_relieff``) in a ``record_function`` range, for the
+rule's device time.  The scores of each input must be equal across
 all turns bit for bit.  Prints the card's name and power limit, one line
 a turn and input; the last line is one JSON object with every number.
 """

@@ -327,7 +327,8 @@ RULE_KERNELS = {
                         "fastselect_tpu/ops/relief.py:_rules_relieff"),
 }
 # __global__ functions of each of the seven kernels, as ptxas names them
-# (mangled: pass 1's kind template has the instances ILb0 and ILb1)
+# (mangled: pass 1's kind template has the instances ILb0 and ILb1, each
+# with a float and a double accumulator)
 KERNEL_FUNCTIONS = {"relief_pass1_cont": ("dist_kernelILb0",
                                           "split_sum_kernel"),
                     "relief_pass1_mixed": ("dist_kernelILb1",
@@ -3009,7 +3010,12 @@ def completeness_phase(dev, X_n, y_n, X_mf, y_mf, large_n_scores, refs,
 
 def _instance(mangled, fn):
     """``fn`` with the template arguments of its instance in ``mangled``
-    (bool and int arguments), e.g. ``partials_kernel<true, 2>``."""
+    (bool and int arguments, and pass 1's accumulator type), e.g.
+    ``partials_kernel<true, 2>`` or ``dist_kernel<true, double>``."""
+    m = re.search(r"dist_kernelILb([01])E([fd])E", mangled)
+    if m is not None:
+        return (f"dist_kernel<{('false', 'true')[int(m.group(1))]}, "
+                f"{'float' if m.group(2) == 'f' else 'double'}>")
     fn = fn.replace("ILb0", "<false>").replace("ILb1", "<true>")
     rest = mangled[mangled.index(fn) + len(fn):] if fn in mangled else ""
     m = re.match(r"I((?:L[bi]\d+E)+)E", rest)

@@ -33,6 +33,15 @@
 //    small kernel adds the partials in split order.  `dist_matrix_ref`
 //    follows the same plan (`relief_cuda.pass1_splits`), so D stays equal
 //    to it bit for bit;
+//  - on that split path the sums are float64: each diff is still computed
+//    in float32 as above, then converted and added to a float64
+//    accumulator, the partials are float64 and are added in float64, and
+//    D is written as float64.  Only p >> n takes it, where D reaches 1e5:
+//    float32's step there is 0.0078, and float32 sums left D up to 0.09
+//    off float64 at 100 x 500,000, coarser than the gap between a
+//    MultiSURF threshold and the nearest distance.  The 64 float64
+//    accumulators take 128 registers, so the instance runs one block an
+//    SM; a p >> n call has few tiles, so that costs a second wave at most;
 //  - MIXED: the kind of a column is read from `disc`, staged beside recip,
 //    once a 4-feature step, and the whole step takes one branch, the same
 //    for every thread of the block.  The fused engine orders its columns
@@ -72,21 +81,40 @@ constexpr int smem_bytes() {
 
 enum Kind { kCont, kDisc, kMix };
 
-__device__ __forceinline__ float add1(float acc, float a, float b, float r) {
-  return __fadd_rn(acc, __fmul_rn(fabsf(__fsub_rn(a, b)), r));
+__device__ __forceinline__ float diff(float a, float b, float r) {
+  return __fmul_rn(fabsf(__fsub_rn(a, b)), r);
 }
 
-template <int KIND>
-__device__ __forceinline__ float step1(float acc, float a, float b, float r,
-                                       float d) {
+__device__ __forceinline__ float add1(float acc, float a, float b, float r) {
+  return __fadd_rn(acc, diff(a, b, r));
+}
+
+// the float64 accumulator of the split path: the same float32 diff, added
+// in float64
+__device__ __forceinline__ double add1(double acc, float a, float b,
+                                       float r) {
+  return __dadd_rn(acc, static_cast<double>(diff(a, b, r)));
+}
+
+__device__ __forceinline__ float add_ne(float acc, float a, float b) {
+  return fs::add_ne(acc, a, b, 1.f);
+}
+
+__device__ __forceinline__ double add_ne(double acc, float a, float b) {
+  return a != b ? __dadd_rn(acc, 1.0) : acc;
+}
+
+template <int KIND, typename Acc>
+__device__ __forceinline__ Acc step1(Acc acc, float a, float b, float r,
+                                     float d) {
   if constexpr (KIND == kCont) return add1(acc, a, b, r);
-  if constexpr (KIND == kDisc) return fs::add_ne(acc, a, b, 1.f);
-  return d > 0.f ? fs::add_ne(acc, a, b, 1.f) : add1(acc, a, b, r);
+  if constexpr (KIND == kDisc) return add_ne(acc, a, b);
+  return d > 0.f ? add_ne(acc, a, b) : add1(acc, a, b, r);
 }
 
 // one 4-feature step of the thread's 8 x 8 tile, features in order
-template <int KIND>
-__device__ __forceinline__ void step4(float (&acc)[kR][kR],
+template <int KIND, typename Acc>
+__device__ __forceinline__ void step4(Acc (&acc)[kR][kR],
                                       const float4 (&a)[kR],
                                       const float* sb, int tx, int k,
                                       float4 rc, float4 dc) {
@@ -96,7 +124,7 @@ __device__ __forceinline__ void step4(float (&acc)[kR][kR],
         *reinterpret_cast<const float4*>(sb + (tx + kT * c) * kLd + k);
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
-      float s = acc[r][c];
+      Acc s = acc[r][c];
       s = step1<KIND>(s, a[r].x, b.x, rc.x, dc.x);
       s = step1<KIND>(s, a[r].y, b.y, rc.y, dc.y);
       s = step1<KIND>(s, a[r].z, b.z, rc.z, dc.z);
@@ -107,12 +135,13 @@ __device__ __forceinline__ void step4(float (&acc)[kR][kR],
 }
 
 // out[z] (nb, n) = the sum over features [z * split, (z + 1) * split) of
-// split z = blockIdx.z.
-template <bool MIXED>
-__global__ void __launch_bounds__(kThreads, 2)
+// split z = blockIdx.z, accumulated in Acc (float, or double on the split
+// path).
+template <bool MIXED, typename Acc>
+__global__ void __launch_bounds__(kThreads, sizeof(Acc) == 4 ? 2 : 1)
 dist_kernel(const float* __restrict__ xi, const float* __restrict__ xp,
             const float* __restrict__ recip, const float* __restrict__ disc,
-            float* __restrict__ out, int nb, int n, int p, int split) {
+            Acc* __restrict__ out, int nb, int n, int p, int split) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kStageFloats = stage_floats<MIXED>();
   const int tid = threadIdx.x;
@@ -150,11 +179,11 @@ dist_kernel(const float* __restrict__ xi, const float* __restrict__ xp,
     }
   };
 
-  float acc[kR][kR];
+  Acc acc[kR][kR];
 #pragma unroll
   for (int r = 0; r < kR; ++r)
 #pragma unroll
-    for (int c = 0; c < kR; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < kR; ++c) acc[r][c] = 0;
 
   load(0, f_begin);
   fs::cp_async_commit();
@@ -180,19 +209,19 @@ dist_kernel(const float* __restrict__ xi, const float* __restrict__ xp,
         const int n_disc = (dc.x > 0.f) + (dc.y > 0.f) + (dc.z > 0.f) +
                            (dc.w > 0.f);
         if (n_disc == 4)
-          step4<kDisc>(acc, a, sb, tx, k, rc, dc);
+          step4<kDisc, Acc>(acc, a, sb, tx, k, rc, dc);
         else if (n_disc == 0)
-          step4<kCont>(acc, a, sb, tx, k, rc, dc);
+          step4<kCont, Acc>(acc, a, sb, tx, k, rc, dc);
         else
-          step4<kMix>(acc, a, sb, tx, k, rc, dc);
+          step4<kMix, Acc>(acc, a, sb, tx, k, rc, dc);
       } else {
-        step4<kCont>(acc, a, sb, tx, k, rc, rc);
+        step4<kCont, Acc>(acc, a, sb, tx, k, rc, rc);
       }
     }
     __syncthreads();            // the stage may be overwritten next
   }
 
-  float* o = out + (long long)blockIdx.z * nb * n;
+  Acc* o = out + (long long)blockIdx.z * nb * n;
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     const int gi = i0 + ty + kT * r;
@@ -204,16 +233,31 @@ dist_kernel(const float* __restrict__ xi, const float* __restrict__ xp,
   }
 }
 
-// d[e] = partial[0][e] + partial[1][e] + ... in split order.
-__global__ void split_sum_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ d, long long count,
+// d[e] = partial[0][e] + partial[1][e] + ... in split order, in float64.
+__global__ void split_sum_kernel(const double* __restrict__ partial,
+                                 double* __restrict__ d, long long count,
                                  int splits) {
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        e < count; e += (long long)gridDim.x * blockDim.x) {
-    float s = partial[e];
-    for (int k = 1; k < splits; ++k) s = __fadd_rn(s, partial[k * count + e]);
+    double s = partial[e];
+    for (int k = 1; k < splits; ++k) s = __dadd_rn(s, partial[k * count + e]);
     d[e] = s;
   }
+}
+
+template <bool MIXED, typename Acc>
+cudaError_t launch_dist(const void* xi, const void* xp, const void* recip,
+                        const void* disc, void* out, int nb, int n, int p,
+                        int split, int splits, cudaStream_t s) {
+  cudaError_t err =
+      fs::allow_smem(dist_kernel<MIXED, Acc>, smem_bytes<MIXED>());
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kTile - 1) / kTile, (nb + kTile - 1) / kTile, splits);
+  dist_kernel<MIXED, Acc><<<grid, kThreads, smem_bytes<MIXED>(), s>>>(
+      static_cast<const float*>(xi), static_cast<const float*>(xp),
+      static_cast<const float*>(recip), static_cast<const float*>(disc),
+      static_cast<Acc*>(out), nb, n, p, split);
+  return cudaGetLastError();
 }
 
 template <bool MIXED>
@@ -223,21 +267,18 @@ int launch(const void* xi, const void* xp, const void* recip,
   if (p % 4 != 0 || split % 4 != 0 || split <= 0 || splits < 1 ||
       (long long)(splits - 1) * split >= p || (splits > 1 && !partial))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = fs::allow_smem(dist_kernel<MIXED>, smem_bytes<MIXED>());
-  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + kTile - 1) / kTile, (nb + kTile - 1) / kTile, splits);
-  float* out = static_cast<float*>(splits > 1 ? partial : d);
-  dist_kernel<MIXED><<<grid, kThreads, smem_bytes<MIXED>(), s>>>(
-      static_cast<const float*>(xi), static_cast<const float*>(xp),
-      static_cast<const float*>(recip), static_cast<const float*>(disc), out,
-      nb, n, p, split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  if (splits == 1)
+    return static_cast<int>(launch_dist<MIXED, float>(
+        xi, xp, recip, disc, d, nb, n, p, split, splits, s));
+  cudaError_t err = launch_dist<MIXED, double>(xi, xp, recip, disc, partial,
+                                               nb, n, p, split, splits, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long count = (long long)nb * n;
   const long long want = (count + 255) / 256;
   const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  split_sum_kernel<<<blocks, 256, 0, s>>>(out, static_cast<float*>(d), count,
+  split_sum_kernel<<<blocks, 256, 0, s>>>(static_cast<const double*>(partial),
+                                          static_cast<double*>(d), count,
                                           splits);
   return static_cast<int>(cudaGetLastError());
 }
@@ -247,9 +288,10 @@ int launch(const void* xi, const void* xp, const void* recip,
 // D (nb, n) = pass 1 of focal rows xi (nb, p) against samples xp (n, p),
 // float32, row-major and contiguous, rows 16-byte aligned (p a multiple of
 // 4); recip (and disc) are (p,).  The features run in `splits` contiguous
-// ranges of `split` features (a multiple of 4; the last range is ragged);
-// with splits > 1, `partial` holds (splits, nb, n) floats of scratch.
-// Launches on `stream` and returns cudaGetLastError() of the launches.
+// ranges of `split` features (a multiple of 4; the last range is ragged).
+// With splits == 1, D is float32; with splits > 1, D is float64 and
+// `partial` holds (splits, nb, n) doubles of scratch.  Launches on
+// `stream` and returns cudaGetLastError() of the launches.
 extern "C" int fs_relief_pass1_cont(const void* xi, const void* xp,
                                     const void* recip, void* d,
                                     void* partial, int nb, int n, int p,

@@ -24,8 +24,16 @@ and the routing between the engines.  On the fused engine ReliefF's W
 comes from one kernel instead (:func:`relieff_weights`,
 ``csrc/relieff_select.cu``), equal to its rule's bit for bit.  Every rule returns a list of
 ``(boolean mask (T, n), per-row coefficient (T,))`` terms with
-``W = sum_k r_k[:, None] * M_k``.  Statistics stay in float32, as in the
-JAX engines: promoting them would move thresholds and flip near masks.
+``W = sum_k r_k[:, None] * M_k``.
+
+MultiSURF's and SURF's row statistics are taken in D's dtype (float32;
+float64 where pass 1 sums feature ranges apart, p >> n), of D less a
+per-row shift (a distance of the row), and the near masks compare the
+shifted D with the shifted threshold.  The JAX engines take
+``E[D^2] - mu^2`` of D itself in float32, which at D ~ 1e5 (100 x
+500,000) keeps about one digit of sigma^2 and puts the threshold off by
+units; shifted, the variance cancels no more than a bit, and the
+threshold is rounded at the scale of sigma rather than of D.
 """
 
 from __future__ import annotations
@@ -48,25 +56,48 @@ def _pair_masks(D, yi, vi, iid, y_flat, valid_flat):
     return vmask, hit
 
 
-def _row_mean_stats(D, vmask, n_real):
-    """Masked D, per-row mean over the n_real - 1 other samples, and
-    1 / (n_real - 1), all float32."""
-    Dm = torch.where(vmask, D, 0.0)
-    denom = 1.0 / (n_real - 1.0)
+def _row_shift(D, iid, valid_flat):
+    """Each focal row's D at its first valid other sample (T,): the
+    shift of :func:`_row_mean_stats`.  Any other valid sample of the row
+    would do; none syncs the device."""
+    valid = valid_flat > 0
+    first = torch.argmax(valid.to(torch.uint8))
+    second = torch.argmax((valid & (torch.arange(
+        valid.shape[0], device=D.device) != first)).to(torch.uint8))
+    j = torch.where(iid == first, second, first)
+    return D.gather(1, j[:, None])[:, 0]
+
+
+def _row_mean_stats(D, vmask, n_real, shift):
+    """Statistics of the shifted distances, in D's dtype: (Dm, the
+    masked D - shift (T, n), 0 where masked; mu, its per-row mean over the
+    n_real - 1 other samples; 1 / (n_real - 1)).  The row mean of D is
+    ``mu + shift``."""
+    Dm = torch.where(vmask, D, shift[:, None]).sub_(shift[:, None])
+    denom = 1.0 / (n_real.to(D.dtype) - 1.0)
     mu = Dm.sum(dim=1) * denom
     return Dm, mu, denom
 
 
 def _rules_multisurf(D, yi, vi, iid, y_flat, valid_flat, n_real, use_star):
-    """mu - sigma/2 adaptive threshold (reference MultiSURF.py:193-251)."""
-    vmask, hit = _pair_masks(D, yi, vi, iid, y_flat, valid_flat)
-    Dm, mu, denom = _row_mean_stats(D, vmask, n_real)
-    sum_d2 = (Dm * Dm).sum(dim=1)
-    del Dm
-    var = torch.clamp_min(sum_d2 * denom - mu * mu, 0.0)
-    thresh = mu - 0.5 * torch.sqrt(var)
+    """mu - sigma/2 adaptive threshold (reference MultiSURF.py:193-251).
 
-    near = (D < thresh[:, None]) & vmask
+    The statistics are taken of D less a per-row shift, a distance of the
+    row itself, so that sigma^2 = E[Dm^2] - mu^2 cancels no more than a
+    bit, and the near mask compares the shifted D with the shifted
+    threshold: D - shift is exact where D lies within a factor of two of
+    the shift, and the threshold is rounded at the scale of sigma rather
+    than of D."""
+    vmask, hit = _pair_masks(D, yi, vi, iid, y_flat, valid_flat)
+    with span("weight_rules.stats", device=D.device):
+        Dm, mu, denom = _row_mean_stats(D, vmask, n_real,
+                                        _row_shift(D, iid, valid_flat))
+        sum_d2 = torch.linalg.vector_norm(Dm, dim=1).square_()
+        var = torch.clamp_min(sum_d2 * denom - mu * mu, 0.0)
+        thresh = mu - 0.5 * torch.sqrt(var)
+
+    near = (Dm < thresh[:, None]) & vmask
+    del Dm
     near_hit = near & hit
     near_miss = near & ~hit
     n_hit = near_hit.sum(dim=1).to(torch.float32)
@@ -84,8 +115,11 @@ def _rules_multisurf(D, yi, vi, iid, y_flat, valid_flat, n_real, use_star):
 def _rules_surf(D, yi, vi, iid, y_flat, valid_flat, n_real, use_star):
     """Mean-distance threshold, unit weights (reference SURF.py:131-195)."""
     vmask, hit = _pair_masks(D, yi, vi, iid, y_flat, valid_flat)
-    _, mu, _ = _row_mean_stats(D, vmask, n_real)
-    near = (D < mu[:, None]) & vmask
+    with span("weight_rules.stats", device=D.device):
+        Dm, mu, _ = _row_mean_stats(D, vmask, n_real,
+                                    _row_shift(D, iid, valid_flat))
+    near = (Dm < mu[:, None]) & vmask
+    del Dm
     ones = torch.ones(D.shape[0], dtype=torch.float32, device=D.device)
     rules = [(near & ~hit, ones), (near & hit, -ones)]
     if use_star:
@@ -320,6 +354,8 @@ def relief_engine_core(x_f, yv_f, valid_f, row0, x_a, yv_a, valid_a,
             D = pass1(x_a, recip, disc, xi=xi, mixed=mixed)
         with span("weight_rules", device=dev):
             if algo == "relieff":
+                # the kernel takes float32 D: p >> n's float64 D rounded
+                D = D.to(torch.float32)
                 W = relieff_weights(D, yv_f[b0:b0 + nb], valid_f[b0:b0 + nb],
                                     iid, yv_a, valid_a, k, class_probs,
                                     labels)

@@ -16,7 +16,8 @@ for every float4 group; the fused engine orders its columns by kind
 block are each of one kind.  The kernels take rows that are 16-byte
 aligned (p a multiple of 4, and n too in pass 2), so every engine pads
 features to ``TILE_FEATURES``.  Between the passes the pair weights W
-come from D by the rules of ``relief.pair_weight_rules``.
+come from D by the rules of ``relief.pair_weight_rules``.  Where p >> n
+pass 1 sums feature ranges apart, in float64, and D is float64.
 
 Each wrapper (:func:`dist_matrix`, :func:`accumulate`) launches its kernel
 for a CUDA tensor, or raises: it never falls back.  For a CPU tensor it
@@ -171,11 +172,12 @@ def _feature_chunk(nb: int, n: int) -> int:
     return max(1, _REF_CHUNK_ELEMS // max(1, nb * n))
 
 
-def _dist_sum(xiT, xpT, recip, disc, f0, f1, mixed):
+def _dist_sum(xiT, xpT, recip, disc, f0, f1, mixed, dtype=torch.float32):
     """sum over features f0..f1-1 of diff(i, j, f), added in order from
-    0.0 with separately rounded multiply and add: (nb, n)."""
+    0.0 with separately rounded multiply and add: (nb, n) of ``dtype``
+    (float32 diffs, added in ``dtype``)."""
     nb, n = xiT.shape[1], xpT.shape[1]
-    D = torch.zeros((nb, n), dtype=torch.float32, device=xpT.device)
+    D = torch.zeros((nb, n), dtype=dtype, device=xpT.device)
     fc = _feature_chunk(nb, n)
     for c0 in range(f0, f1, fc):
         c1 = min(f1, c0 + fc)
@@ -186,20 +188,31 @@ def _dist_sum(xiT, xpT, recip, disc, f0, f1, mixed):
     return D
 
 
+def dist_dtype(nb: int, n: int, p: int) -> torch.dtype:
+    """D's dtype for focal rows nb, samples n and features p: float64
+    where pass 1 sums several feature ranges apart (p >> n, where D
+    reaches 1e5 and float32's step of 0.0078 there moves MultiSURF's near
+    masks), float32 otherwise."""
+    return torch.float64 if len(pass1_splits(nb, n, p)) > 1 \
+        else torch.float32
+
+
 def dist_matrix_ref(xp, recip, disc, xi=None, *, mixed):
     """Plain version of :func:`dist_matrix`.
 
     Each feature range of the kernel's plan (:func:`pass1_splits`) is
     summed from 0.0 in feature order, then the ranges are added in order,
     exactly as the kernels do, so the kernel's D equals this one bit for
-    bit."""
+    bit.  With several ranges the sums and D are float64
+    (:func:`dist_dtype`)."""
     xi = xp if xi is None else xi
     nb, n, p = xi.shape[0], xp.shape[0], xp.shape[1]
     xiT, xpT = xi.t(), xp.t()
     splits = pass1_splits(nb, n, p)
-    D = _dist_sum(xiT, xpT, recip, disc, *splits[0], mixed)
+    dtype = dist_dtype(nb, n, p)
+    D = _dist_sum(xiT, xpT, recip, disc, *splits[0], mixed, dtype)
     for f0, f1 in splits[1:]:
-        D.add_(_dist_sum(xiT, xpT, recip, disc, f0, f1, mixed))
+        D.add_(_dist_sum(xiT, xpT, recip, disc, f0, f1, mixed, dtype))
     return D
 
 
@@ -269,16 +282,20 @@ def dist_matrix(xp, recip, disc, xi=None, *, mixed):
 
     ``mixed=False`` selects the all-continuous kernel (``disc`` is
     ignored).  Either kernel sums the feature ranges of
-    :func:`pass1_splits` apart and then in order.
+    :func:`pass1_splits` apart and then in order, in float64 where there
+    are several (D is then float64: :func:`dist_dtype`).  Counter
+    ``pass1_ranges`` adds up the ranges.
     """
     xi = xp if xi is None else xi
     nb, n, p = _check_inputs(xp, xi, recip, disc, mixed=mixed)
+    splits = pass1_splits(nb, n, p)
+    count("pass1_ranges", len(splits))
     if xp.device.type == "cpu":
         return dist_matrix_ref(xp, recip, disc, xi, mixed=mixed)
     lib = _build.load()
-    D = torch.empty((nb, n), dtype=torch.float32, device=xp.device)
-    splits = pass1_splits(nb, n, p)
-    part = (torch.empty((len(splits), nb, n), dtype=torch.float32,
+    dtype = dist_dtype(nb, n, p)
+    D = torch.empty((nb, n), dtype=dtype, device=xp.device)
+    part = (torch.empty((len(splits), nb, n), dtype=dtype,
                         device=xp.device) if len(splits) > 1 else None)
     args = (D.data_ptr(), 0 if part is None else part.data_ptr(), nb, n, p,
             splits[0][1], len(splits),
@@ -444,9 +461,11 @@ def stage_fused(x, y, recip, disc, class_probs, device, n_pad: int,
     """X (a tensor) and its labels, ranges and kinds (``disc`` a numpy bool
     array) padded to (n_pad, p_pad) in the layout of
     :func:`feature_positions`, on ``device``."""
-    n = x.shape[0]
+    n, p = x.shape
     d_run = _round_up(int(disc.sum()), TILE_FEATURES)   # padded run
-    pos = torch.as_tensor(feature_positions(disc), device=device)
+    # with no discrete column the layout is X's own column order
+    pos = (torch.as_tensor(feature_positions(disc), device=device) if d_run
+           else torch.arange(p, device=device))
     xp = torch.zeros((n_pad, p_pad), dtype=torch.float32, device=device)
     xp[:n].index_copy_(1, pos, x.to(device=device, dtype=torch.float32))
     yv = torch.full((n_pad,), -1, dtype=torch.int64, device=device)

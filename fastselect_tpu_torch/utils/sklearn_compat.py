@@ -18,6 +18,7 @@ import inspect
 import warnings
 
 import numpy as np
+import torch
 
 
 def _clone(estimator, *, safe=True):
@@ -40,18 +41,37 @@ def _clone(estimator, *, safe=True):
     return type(estimator)(**params)
 
 
+def _total(X):
+    """The sum of X's values: on torch's threads for a writeable,
+    C-contiguous float32 or float64 array (no copy, no temporary), else
+    numpy's."""
+    if (X.dtype in (np.float32, np.float64) and X.dtype.isnative
+            and X.flags.writeable and X.flags.c_contiguous):
+        return torch.from_numpy(X).sum().item()
+    return np.sum(X)
+
+
 def _check_finite(X):
+    """Raise on NaN or infinity.  As scikit-learn does, the sum comes
+    first: it is finite where every value is and takes one pass with no
+    temporary (for a wide X, the elementwise check's allocation cost more
+    than the pass, and varied most from process to process); only a sum
+    that is not finite, a NaN, an infinity or an overflow, takes the
+    elementwise check."""
+    if np.isfinite(_total(X)):
+        return
     if not np.isfinite(X).all():
         raise ValueError("Input X contains NaN." if np.isnan(X).any()
                          else "Input X contains infinity.")
 
 
-def _check_array(X, dtype, ensure_2d):
+def _check_array(X, dtype, ensure_2d, ensure_all_finite=True):
     """``dtype="numeric"`` keeps a numeric dtype and casts object input
     to float64; a list of dtypes keeps X's dtype when it is listed,
     else casts to the first.  X becomes an array first and is then cast
     as numpy casts (-1 wraps to 255 and 2.7 truncates to 2 in uint8, as
-    scikit-learn 1.9 casts them); NaN and infinity raise before the cast."""
+    scikit-learn 1.9 casts them); NaN and infinity raise before the cast
+    unless ``ensure_all_finite`` is False."""
     X = np.asarray(X)
     if isinstance(dtype, str) and dtype == "numeric":
         dtype = np.float64 if X.dtype.kind == "O" else X.dtype
@@ -61,11 +81,11 @@ def _check_array(X, dtype, ensure_2d):
         raise ValueError(f"Expected 2D array, got {X.ndim}D array "
                          "instead.")
     was_float = X.dtype.kind in "fc"
-    if was_float:
+    if was_float and ensure_all_finite:
         _check_finite(X)
     if dtype is not None:
         X = X.astype(dtype, copy=False)
-    if not was_float and X.dtype.kind in "fc":
+    if not was_float and X.dtype.kind in "fc" and ensure_all_finite:
         _check_finite(X)
     return X
 
@@ -285,8 +305,9 @@ try:
     from sklearn.model_selection import StratifiedKFold
     from sklearn.preprocessing import KBinsDiscretizer
     from sklearn.utils.multiclass import unique_labels
-    from sklearn.utils.validation import (check_array, check_is_fitted,
-                                          check_X_y, validate_data)
+    from sklearn.utils.validation import (assert_all_finite, check_array,
+                                          check_is_fitted, check_X_y,
+                                          validate_data)
     HAVE_SKLEARN = True
 except ImportError:
     clone = _clone
@@ -366,10 +387,11 @@ except ImportError:
         return X, _check_y(X, y, y_numeric)
 
     def validate_data(estimator, X, y=None, *, reset=True,
-                      dtype=np.float64, ensure_2d=True, y_numeric=False):
+                      dtype=np.float64, ensure_2d=True, y_numeric=False,
+                      ensure_all_finite=True):
         """Array conversion and checks of ``sklearn``'s ``validate_data``
         for the arguments the estimators pass."""
-        X = _check_array(X, dtype, ensure_2d)
+        X = _check_array(X, dtype, ensure_2d, ensure_all_finite)
         if reset:
             estimator.n_features_in_ = X.shape[1]
         elif X.shape[1] != estimator.n_features_in_:
@@ -382,8 +404,18 @@ except ImportError:
         return X, _check_y(X, y, y_numeric)
 
 
+def check_finite(X) -> None:
+    """Raise ``ValueError("Input X contains NaN.")`` (or infinity) as
+    ``validate_data`` does, for X validated with ``ensure_all_finite``
+    False."""
+    if HAVE_SKLEARN:
+        assert_all_finite(X, input_name="X")
+    else:
+        _check_finite(X)
+
+
 __all__ = ["HAVE_SKLEARN", "BaseEstimator", "ClassifierMixin",
            "KBinsDiscretizer", "NotFittedError", "SelectorMixin",
            "StratifiedKFold", "TransformerMixin", "check_X_y",
-           "check_array", "check_is_fitted", "clone", "unique_labels",
-           "validate_data"]
+           "check_array", "check_finite", "check_is_fitted", "clone",
+           "unique_labels", "validate_data"]

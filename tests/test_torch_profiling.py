@@ -138,18 +138,21 @@ def test_engines_log_their_phases(info_log, rng):
                       "relief_discrete.engine[relieff]"]
     # the fit's spans, and those each engine phase holds, logged before it
     assert names[:names.index("relief_discrete.h2d")] == [
-        "fused.pass1", "weight_rules", "fused.pass2",
+        "fused.pass1", "weight_rules", "weight_rules.stats", "fused.pass2",
         "relief_cuda.engine[multisurf]", "fit[MultiSURF]", "fit.validate",
         "fit.analysis", "fit.score", "fused.plan", "fit.select"]
-    for engine in ("relief_discrete.engine[surf]",
-                   "relief_discrete.engine[relieff]"):
+    # SURF's rule takes the row statistics, ReliefF's none
+    for engine, rules in (("relief_discrete.engine[surf]",
+                           ["weight_rules", "weight_rules.stats"]),
+                          ("relief_discrete.engine[relieff]",
+                           ["weight_rules"])):
         i = names.index(engine)
-        assert names[i - 3:i] == ["discrete.pass1", "weight_rules",
-                                  "discrete.pass2"]
+        assert names[i - len(rules) - 2:i] == (
+            ["discrete.pass1"] + rules + ["discrete.pass2"])
     assert set(names) - set(phases) == {
-        "fused.pass1", "weight_rules", "fused.pass2", "fit[MultiSURF]",
-        "fit.validate", "fit.analysis", "fit.score", "fused.plan",
-        "fit.select", "discrete.pass1", "discrete.pass2"}
+        "fused.pass1", "weight_rules", "weight_rules.stats", "fused.pass2",
+        "fit[MultiSURF]", "fit.validate", "fit.analysis", "fit.score",
+        "fused.plan", "fit.select", "discrete.pass1", "discrete.pass2"}
 
 
 def test_engines_log_the_v2_phase(monkeypatch, info_log, rng):
@@ -165,7 +168,8 @@ def test_engines_log_the_v2_phase(monkeypatch, info_log, rng):
     # the one-hot, pass 1's match matrix, then each focal block's rules
     # and pass 2), then the phase itself
     assert names == ["discrete.layout", "discrete.pass1", "weight_rules",
-                     "discrete.pass2", "relief_discrete.engine_v2[multisurf]"]
+                     "weight_rules.stats", "discrete.pass2",
+                     "relief_discrete.engine_v2[multisurf]"]
 
 
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path, rng):

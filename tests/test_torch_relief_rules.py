@@ -112,7 +112,9 @@ def test_unknown_algorithm_raises():
 
 def test_multisurf_statistics_stay_float32(rng):
     """mu divides by n_real - 1 (not the valid count) and every statistic
-    is float32, as in the JAX engines."""
+    of a float32 D is float32, as in the JAX engines; the statistics are
+    of D less each row's shift, and mu plus the shift is the row mean.  A
+    float64 D (pass 1's split path) gets float64 statistics."""
     D, y, valid, iid, cp = _inputs(rng, 2, False)
     Dt = torch.from_numpy(D)
     vmask, _ = TR._pair_masks(Dt, torch.from_numpy(y[ROW0:ROW0 + T]).long(),
@@ -121,11 +123,19 @@ def test_multisurf_statistics_stay_float32(rng):
                               torch.from_numpy(y).long(),
                               torch.from_numpy(valid))
     n_real = torch.tensor(N_REAL, dtype=torch.float32)
-    Dm, mu, denom = TR._row_mean_stats(Dt, vmask, n_real)
-    assert mu.dtype == denom.dtype == Dm.dtype == torch.float32
+    shift = TR._row_shift(Dt, torch.from_numpy(iid).long(),
+                          torch.from_numpy(valid))
+    Dm, mu, denom = TR._row_mean_stats(Dt, vmask, n_real, shift)
+    assert mu.dtype == denom.dtype == Dm.dtype == shift.dtype == torch.float32
+    assert not Dm[~vmask].any()
     expected = (np.where(vmask.numpy(), D, 0).sum(1, dtype=np.float64)
                 / (N_REAL - 1))
-    assert_allclose(mu.numpy(), expected, rtol=1e-6)
+    assert_allclose((mu + shift).numpy(), expected, rtol=1e-6)
     jm = jax.jit(JR._row_mean_stats)(
         jnp.asarray(D), jnp.asarray(vmask.numpy()), np.float32(N_REAL))[1]
-    assert_allclose(mu.numpy(), np.asarray(jm), rtol=1e-6)
+    assert_allclose((mu + shift).numpy(), np.asarray(jm), rtol=1e-6)
+    D64 = Dt.double()
+    Dm64, mu64, denom64 = TR._row_mean_stats(D64, vmask, n_real,
+                                             shift.double())
+    assert mu64.dtype == denom64.dtype == Dm64.dtype == torch.float64
+    assert_allclose((mu64 + shift.double()).numpy(), expected, rtol=1e-12)

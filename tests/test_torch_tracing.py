@@ -16,6 +16,7 @@ import torch
 from fastselect_tpu_torch import MultiSURF, ReliefF
 from fastselect_tpu_torch import _build
 from fastselect_tpu_torch.models import _relief_base as TB
+from fastselect_tpu_torch.ops import relief_cuda as rc
 from fastselect_tpu_torch.ops import relief_discrete as rd
 from fastselect_tpu_torch.utils import logging as fs_logging
 from fastselect_tpu_torch.utils import profiling
@@ -164,6 +165,30 @@ def test_one_record_per_name_with_counts_and_deltas(info_log, monkeypatch,
     spans = _spans(records)
     assert len(spans["discrete.pass2"]) == blocks
     assert len(spans["weight_rules"]) == blocks
+
+
+def test_rule_stats_span_and_pass1_ranges(info_log, monkeypatch, rng):
+    """A MultiSURF fit of p >> n in three focal blocks: one
+    ``weight_rules.stats`` span inside each block's ``weight_rules``, and
+    the root's ``pass1_ranges`` adds up pass 1's feature ranges over the
+    blocks (4 a block here)."""
+    monkeypatch.setattr(rc, "_CPU_BLOCK_BYTES",
+                        rc._BYTES_PER_PAIR * 192 * rc.TILE_ROWS)
+    n, p = 150, 600
+    MultiSURF(backend="cpu").fit(rng.rand(n, p), rng.randint(0, 2, n))
+    plan = rc.block_plan(n, p, torch.device("cpu"))
+    blocks = range(0, plan.n_pad, plan.nb)
+    ranges = sum(len(rc.pass1_splits(min(plan.nb, plan.n_pad - b0),
+                                     plan.n_pad, plan.p_pad))
+                 for b0 in blocks)
+    assert len(blocks) == 3 and ranges == 12
+    names = [r.getMessage().split(":")[0] for r in info_log.records]
+    root = info_log.records[names.index("fit[MultiSURF]")]
+    assert root.counts["pass1_ranges"] == ranges
+    spans = _spans(info_log.records)
+    rules = [sp[0] for sp in spans["weight_rules"]]
+    assert [sp[1] for sp in spans["weight_rules.stats"]] == rules
+    assert len(rules) == len(blocks)
 
 
 def test_registered_counter_deltas(info_log, monkeypatch, rng):

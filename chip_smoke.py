@@ -25,7 +25,12 @@ Phases, one or two lines each on stdout:
    above: mixed-xl's focal block included) and, for pass 1,
    ``torch.cdist`` (p=1 continuous, p=0 all-discrete);
 4. ``MultiSURF().fit`` at the upstream reference's large-n point,
-   50,000 samples x 100 continuous features, first and warm;
+   50,000 samples x 100 continuous features, first and warm, launching
+   each rule kernel once a focal block, against the plain engine: the
+   plain passes and the rule's chain of PyTorch operations, which launch
+   nothing (so too every fit of phases 4-6 and 9 on the fused engine);
+   the main path's launches, the references' taken off, go on each
+   kernel's line as ``launches``;
 5. the same at its large-p point, 100 samples x 100,000 features;
 6. a small mixed fit (2,000 x 200 with 40 integer-valued columns) on the
    hybrid engine, a mixed fit with a 150-state discrete column on the
@@ -216,7 +221,20 @@ Phases, one or two lines each on stdout:
     k = 100, a class of 5 members, labels past class_probs, zeros of
     either sign).  Each timed with CUDA events (mean of 10): the whole
     call, the kernel's launch alone, and the sort chain (``library_ms``,
-    mean of 3), beside the bound (8 B a pair at 3.35 TB/s).
+    mean of 3), beside the bound (8 B a pair at 3.35 TB/s);
+29. threshold, after phase 28: MultiSURF's and SURF's rule kernels
+    (``csrc/threshold_rule.cu``, ``ops/relief.py:threshold_weights``)
+    against the chain they replace, ``_sum_rules(pair_weight_rules(...))``,
+    on pass 1's D of large-n's first MultiSURF block (25,024 x 50,048 on
+    the H100) as float32 and as float64, for MultiSURF, MultiSURF*, SURF
+    and SURF*: two calls equal, and W the chain's bits on every row whose
+    near mask agrees with the chain's, W's near mask that of the float64
+    row sums' threshold but within ``THRESHOLD_ULPS`` ulps of it
+    (``threshold_held``), and W the rule's on its own near mask.  Each timed with CUDA events (mean of 10): the
+    statistics launch and the weights launch alone, the
+    whole call and the chain (``library_ms``, mean of 3), beside each
+    launch's bound (4 B a pair of float32 D for the statistics, 8 B for
+    the weights, at 3.35 TB/s).
 
 Phases 14-20 print their first and warm fit times, int8 GEMM operations
 (``relief_discrete.gemm_ops``) and rate, peak device memory, the host
@@ -250,7 +268,7 @@ must launch the continuous kernels and the int8 GEMMs and no ``MIXED``
 kernel, and is held against the fused engine with the ``MIXED`` kernels
 on the same rows in the hybrid's order.  Any failed check raises, so the
 script exits non-zero; it also fails when no CUDA device is present.  The
-line before the last is a JSON summary of the seven kernels (launches,
+line before the last is a JSON summary of the nine kernels (launches,
 errors, times, bounds and registers, per timed shape; the window
 kernels' launches are phase 7's, with phases 7, 8 and 24 apart under
 ``phase_launches``); the last line is ``{"ok": true, "device": {...}}``.
@@ -325,8 +343,12 @@ WINDOW_KERNELS = {
 RULE_KERNELS = {
     "relieff_weights": ("fastselect_tpu_torch/csrc/relieff_select.cu",
                         "fastselect_tpu/ops/relief.py:_rules_relieff"),
+    "threshold_stats": ("fastselect_tpu_torch/csrc/threshold_rule.cu",
+                        "fastselect_tpu/ops/relief.py:_rules_multisurf"),
+    "threshold_weights": ("fastselect_tpu_torch/csrc/threshold_rule.cu",
+                          "fastselect_tpu/ops/relief.py:_rules_multisurf"),
 }
-# __global__ functions of each of the seven kernels, as ptxas names them
+# __global__ functions of each of the nine kernels, as ptxas names them
 # (mangled: pass 1's kind template has the instances ILb0 and ILb1, each
 # with a float and a double accumulator)
 KERNEL_FUNCTIONS = {"relief_pass1_cont": ("dist_kernelILb0",
@@ -338,7 +360,9 @@ KERNEL_FUNCTIONS = {"relief_pass1_cont": ("dist_kernelILb0",
                     "window_onehot": ("onehot_kernel", "onehot_t_kernel"),
                     "window_partials": ("partials_kernel",
                                         "partials_finish_kernel"),
-                    "relieff_weights": ("relieff_select_kernel",)}
+                    "relieff_weights": ("relieff_select_kernel",),
+                    "threshold_stats": ("threshold_stats_kernel",),
+                    "threshold_weights": ("threshold_weights_kernel",)}
 # pass 1 of either kind must equal its plain version bit for bit
 SCORE_RTOL = 1e-3    # pass 2 against its plain version, relative to max|s|
 FIT_ATOL = 1e-4      # fitted scores against the plain-pass engine
@@ -572,9 +596,10 @@ def timed_fit(dev, est, X, y):
 def fit_phase(dev, label, X, y, must_launch, n_select=10, make=MultiSURF,
               warm=0, **params):
     """Fit through the estimator (then ``warm`` more, timed), check that it
-    launched the kernels named in must_launch, then hold it against the
-    plain-pass engine on the card.  Returns the fitted estimator and the
-    first fit's seconds."""
+    launched the kernels named in must_launch and its rule's kernels once
+    a focal block, then hold it against the plain engine on the card: the
+    plain passes and the rule's chain of PyTorch operations, no kernel.
+    Returns the fitted estimator and the first fit's seconds."""
     est = make(n_features_to_select=n_select, **params)
     y_enc = np.unique(y, return_inverse=True)[1]
     kw = engine_args(est, y_enc)
@@ -588,15 +613,25 @@ def fit_phase(dev, label, X, y, must_launch, n_select=10, make=MultiSURF,
     check(est.effective_backend_ == "cuda", f"{label}: effective_backend_")
     for name in must_launch:
         check(moved[name] > 0, f"{label}: the fit launched {name}")
+    # one launch of each rule kernel a focal block, as of pass 1
+    blocks = moved["relief_pass1_cont"] + moved["relief_pass1_mixed"]
+    rule = (("relieff_weights",) if kw["algo"] == "relieff"
+            else ("threshold_stats", "threshold_weights"))
+    check(blocks > 0 and all(moved[name] == blocks for name in rule),
+          f"{label}: {rule} launched once a focal block: {moved}")
     check(s.shape == (X.shape[1],) and np.isfinite(s).all(),
           f"{label}: finite scores of shape ({X.shape[1]},)")
     x_dev = torch.tensor(X, dtype=torch.float32, device=dev)
     fa = analyze_features(x_dev, est.discrete_limit)
+    before = dict(rc.launches)
     t0 = time.perf_counter()
     ref = rc.relief_fused_scores(
         x_dev, y_enc, fa.recip, fa.is_discrete, device=dev,
-        _pass1=rc.dist_matrix_ref, _pass2=rc.accumulate_ref, **kw)
+        _pass1=rc.dist_matrix_ref, _pass2=rc.accumulate_ref,
+        _rule=relief_mod.chain_weights, **kw)
     ref_s = time.perf_counter() - t0
+    check(rc.launches == before, f"{label}: the plain engine launched no "
+          f"kernel: {before} -> {rc.launches}")
     ref_top = np.argsort(ref)[::-1][:n_select]
     err = float(np.abs(s - ref).max())
     check(err <= fit_tol(ref), f"{label}: max |scores - plain engine| = "
@@ -605,7 +640,7 @@ def fit_phase(dev, label, X, y, must_launch, n_select=10, make=MultiSURF,
           f"{label}: top_features_ {est.top_features_} vs {ref_top}")
     print(f"{label}: {type(est).__name__} X {X.shape[0]}x{X.shape[1]} fit "
           f"{fit_s:.4f} s{''.join(f', warm {t:.4f} s' for t in warm_s)} "
-          f"(plain-pass engine {ref_s:.4f} s); n_pad "
+          f"(plain engine {ref_s:.4f} s); n_pad "
           f"{plan.n_pad} p_pad {plan.p_pad} nb {plan.nb} "
           f"({plan.n_pad // plan.nb} blocks); peak {peak_gb:.2f} GB; "
           f"launches {moved}; max |scores - plain| {err:.3e}; top_features_ "
@@ -3523,14 +3558,14 @@ def relieff_block(dev, kind, t, n, n_real, row0, ncls, seed, few=None,
             torch.from_numpy(cp).to(dev))
 
 
-def large_n_block(dev, X, y):
-    """The first focal block of large-n's ReliefF fit: pass 1's D of
+def large_n_block(dev, X, y, algo="relieff"):
+    """The first focal block of large-n's fit of ``algo``: pass 1's D of
     ``block_plan``'s nb rows against all samples, and the labels the
     engine stages."""
     n, p = X.shape
     y_enc = np.unique(y, return_inverse=True)[1]
     cp = (np.bincount(y_enc) / n).astype(np.float32)
-    plan = rc.block_plan(n, p, dev, "relieff")
+    plan = rc.block_plan(n, p, dev, algo)
     recip = (1.0 / np.maximum(X.max(0) - X.min(0), 1e-30)).astype(np.float32)
     fl = rc.stage_fused(torch.from_numpy(X), y_enc, recip, np.zeros(p, bool),
                         cp, dev, plan.n_pad, plan.p_pad)
@@ -3627,6 +3662,210 @@ def relieff_kernel_phase(dev, large_n, cases=RELIEFF_CASES, reps=10):
     return rows
 
 
+# phase 29: the rules of csrc/threshold_rule.cu, (algo, use_star), and how
+# many ulps of the float64 row sums' threshold a pair may lie from it and
+# take the other side (the order of the float64 sums may decide there)
+THRESHOLD_RULES = (("multisurf", False), ("multisurf", True),
+                   ("surf", False), ("surf", True))
+THRESHOLD_ULPS = 4
+
+
+def chain_threshold(args, algo):
+    """(Dm, the chain's threshold (T,), vmask, hit) of the focal block
+    ``args`` (D, yi, vi, iid, y_flat, valid_flat, n_real), as
+    ``_rules_multisurf`` and ``_rules_surf`` compute them."""
+    D, yi, vi, iid, y, valid, n_real = args
+    vmask, hit = relief_mod._pair_masks(D, yi, vi, iid, y, valid)
+    Dm, mu, denom = relief_mod._row_mean_stats(
+        D, vmask, n_real, relief_mod._row_shift(D, iid, valid))
+    if algo == "surf":
+        return Dm, mu, vmask, hit
+    sum_d2 = torch.linalg.vector_norm(Dm, dim=1).square_()
+    var = torch.clamp_min(sum_d2 * denom - mu * mu, 0.0)
+    return Dm, mu - 0.5 * torch.sqrt(var), vmask, hit
+
+
+def near_of(W, vmask, hit):
+    """The near mask a W of either rule encodes: near hits and far misses
+    weigh less than 0, near misses and far hits more (or 0 off the
+    starred rules)."""
+    return vmask & ((hit & (W < 0)) | (~hit & (W > 0)))
+
+
+def rule_weights(near, vmask, hit, algo, star):
+    """The chain's W on a given near mask."""
+    ones = torch.ones(near.shape[0], dtype=torch.float32, device=near.device)
+    if algo == "surf":
+        rules = [(near & ~hit, ones), (near & hit, -ones)]
+        if star:
+            far = vmask & ~near
+            rules += [(far & hit, ones), (far & ~hit, -ones)]
+        return relief_mod._sum_rules(rules)
+    n_hit = (near & hit).sum(dim=1).to(torch.float32)
+    n_miss = (near & ~hit).sum(dim=1).to(torch.float32)
+    w_miss = 1.0 / torch.clamp_min(n_miss, 1.0)
+    rules = [(near & hit, -1.0 / torch.clamp_min(n_hit, 1.0)),
+             (near & ~hit, w_miss)]
+    if star:
+        rules.append((vmask & ~near & ~hit, -w_miss))
+    return relief_mod._sum_rules(rules)
+
+
+def model_threshold(Dm, denom, algo):
+    """The kernels' threshold (T,) of the chain's shifted rows ``Dm`` (0
+    off the mask) and 1 / (n_real - 1): each row's sum and sum of squares
+    in float64 rounded to Dm's dtype, then the chain's formula in it."""
+    s1, s2 = (torch.empty(Dm.shape[0], dtype=torch.float64, device=Dm.device)
+              for _ in range(2))
+    for r0 in range(0, Dm.shape[0], 1024):
+        part = Dm[r0:r0 + 1024].to(torch.float64, copy=True)
+        s1[r0:r0 + 1024] = part.sum(dim=1)
+        s2[r0:r0 + 1024] = part.square_().sum(dim=1)
+    mu = s1.to(Dm.dtype) * denom
+    if algo == "surf":
+        return mu
+    var = torch.clamp_min(s2.to(Dm.dtype) * denom - mu * mu, 0.0)
+    return mu - 0.5 * torch.sqrt(var)
+
+
+def threshold_held(W, args, algo, star, ulps=THRESHOLD_ULPS):
+    """Hold W, the threshold kernels' pair weights of the focal block
+    ``args``, to the chain on the same D: W is the chain's bit for bit on
+    every row whose near mask agrees with the chain's; W's near mask is
+    that of :func:`model_threshold` (the kernels' float64 row sums) but
+    for pairs within ``ulps`` ulps of its threshold, where the order of
+    the float64 sums may decide; and W is the rule's W on its own near
+    mask.  Where the chain's float32 sums put its threshold off the
+    float64 one, the pairs between the two change sides.  Returns (pairs
+    that changed sides of the chain's threshold, rows that hold them,
+    pairs off the model's side, the criteria W fails)."""
+    want = relief_mod.chain_weights(*args, None, algo=algo, use_star=star,
+                                    k=0)
+    if W.dtype != torch.float32 or W.shape != want.shape:
+        return 0, 0, 0, [f"W is float32 of shape {tuple(want.shape)}"]
+    faults = []
+    D, _, _, _, _, _, n_real = args
+    Dm, thr, vmask, hit = chain_threshold(args, algo)
+    moved = near_of(want, vmask, hit)
+    if not torch.equal(moved, vmask & (Dm < thr[:, None])):
+        faults.append("the chain's W encodes its near mask")
+    near = near_of(W, vmask, hit)
+    moved.ne_(near)
+    rows = moved.any(dim=1)
+    pairs = int(moved.sum())
+    differ = (W.view(torch.int32) != want.view(torch.int32)).any(dim=1)
+    del want, moved
+    if bool((differ & ~rows).any()):
+        faults.append("W is the chain's bit for bit where the near mask "
+                      "agrees")
+    thr = model_threshold(Dm, 1.0 / (n_real.to(D.dtype) - 1.0), algo)
+    off = (vmask & (Dm < thr[:, None])).ne_(near)
+    i, j = torch.nonzero(off, as_tuple=True)
+    del off
+    if i.numel():
+        a = thr.abs()
+        ulp = (torch.nextafter(a, torch.full_like(a, math.inf)) - a)[i]
+        gap = (Dm[i, j].double() - thr[i].double()).abs()
+        if not bool((gap <= ulps * ulp.double()).all()):
+            faults.append(f"W's near mask is the float64 sums' but within "
+                          f"{ulps} ulps of their threshold")
+    del Dm
+    if not torch.equal(W.view(torch.int32), rule_weights(
+            near, vmask, hit, algo, star).view(torch.int32)):
+        faults.append("W is the rule's on its own near mask")
+    return pairs, int(rows.sum()), int(i.numel()), faults
+
+
+def threshold_bound_ms(t, n, d_bytes, kernel):
+    """The least time of one launch on an H100 at 700 W: the statistics
+    read D once (``d_bytes`` a pair), the weights read D and write W
+    (``d_bytes`` + 4 a pair); the labels besides."""
+    per_pair = d_bytes if kernel == "threshold_stats" else d_bytes + 4
+    return (per_pair * t * n + 4 * n) / HBM_BYTES_PER_S * 1e3
+
+
+def threshold_kernel_phase(dev, large_n, reps=10):
+    """Phase 29: MultiSURF's and SURF's rule kernels (``threshold_weights``,
+    ``csrc/threshold_rule.cu``) against the chain they replace,
+    ``_sum_rules(pair_weight_rules(...))``, on ``large_n`` (a focal block
+    of :func:`large_n_block`, (D, yi, vi, iid, y_flat, valid_flat,
+    class_probs)) as float32 and as float64, for each of
+    ``THRESHOLD_RULES``: two calls equal, and W held to the chain by
+    :func:`threshold_held`.  Then timed (CUDA events, mean of ``reps``):
+    each launch alone on the wrapper's own operands, the whole call and
+    the chain (``library_ms``, mean of 3), beside each launch's bound in
+    bytes.  Returns kernel name -> timed rows."""
+    t0 = time.perf_counter()
+    before = {k: rc.launches[k] for k in ("threshold_stats",
+                                          "threshold_weights")}
+    D32, yi, vi, iid, y, valid, _ = large_n
+    n_real = valid.sum()
+    rows = {k: [] for k in before}
+    for dtype in (torch.float32, torch.float64):
+        D = D32.to(dtype)
+        t, n = D.shape
+        args = (D, yi, vi, iid, y, valid, n_real)
+        for algo, star in THRESHOLD_RULES:
+            name = f"{algo}{'*' if star else ''} {str(dtype)[6:]}"
+            got = relief_mod.threshold_weights(*args, algo=algo,
+                                               use_star=star)
+            again = relief_mod.threshold_weights(*args, algo=algo,
+                                                 use_star=star)
+            check(torch.equal(got, again), f"threshold_weights {name}: "
+                  f"launches differ")
+            del again
+            pairs, moved, off, faults = threshold_held(got, args, algo,
+                                                       star)
+            del got
+            check(not faults, f"threshold_weights {name}: W against the "
+                  f"chain ({pairs} pairs in {moved} rows changed sides, "
+                  f"{off} off the float64 sums' side): {faults}")
+            ops, shift, denom = relief_mod._threshold_operands(*args)
+            thr, coef = relief_mod._threshold_stats(
+                D, ops, shift, denom, algo == "multisurf", star)
+            ms = {"threshold_stats": cuda_ms(
+                lambda: relief_mod._threshold_stats(
+                    D, ops, shift, denom, algo == "multisurf", star), reps),
+                  "threshold_weights": cuda_ms(
+                lambda: relief_mod._threshold_launch(D, ops, shift, thr,
+                                                     coef), reps)}
+            call_ms = cuda_ms(lambda: relief_mod.threshold_weights(
+                *args, algo=algo, use_star=star), reps)
+            chain_ms = cuda_ms(lambda: relief_mod._sum_rules(
+                relief_mod.pair_weight_rules(*args, None, algo=algo,
+                                             use_star=star, k=0)),
+                min(reps, 3))
+            for kernel, kernel_ms in ms.items():
+                bound = threshold_bound_ms(t, n, D.element_size(), kernel)
+                rows[kernel].append(dict(
+                    shape=f"large-n block {name}: {t}x{n}", ms=kernel_ms,
+                    kernel_ms=kernel_ms, call_ms=call_ms, plain_ms=chain_ms,
+                    library_ms=chain_ms, bound_ms=bound, bound_by="bytes",
+                    share=bound / kernel_ms, rows_moved=moved,
+                    pairs_moved=pairs, pairs_off_model=off))
+            print(f"threshold_weights large-n block {name} ({t}x{n}): "
+                  f"{pairs} pairs in {moved} rows changed sides of the "
+                  f"chain's threshold, {off} of the float64 sums' (each "
+                  f"within {THRESHOLD_ULPS} ulps of it); elsewhere W is the "
+                  f"chain's bit for bit; "
+                  f"stats {ms['threshold_stats']:.4f} ms, weights "
+                  f"{ms['threshold_weights']:.4f} ms, call {call_ms:.4f} "
+                  f"ms, chain {chain_ms:.4f} ms, bounds "
+                  + ", ".join(f"{threshold_bound_ms(t, n, D.element_size(), k):.4f}"
+                              for k in ms)
+                  + " ms (bytes)", flush=True)
+            del ops, shift, thr, coef
+            torch.cuda.empty_cache()
+        del D, args
+    for kernel, k0 in before.items():
+        moved = rc.launches[kernel] - k0
+        check(dev.type != "cuda" or moved > 0,
+              f"phase 29: {kernel} launched {moved} times")
+    print(f"threshold kernels: phase {time.perf_counter() - t0:.2f} s on "
+          f"{SMI}", flush=True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 
 def main():
@@ -3716,14 +3955,23 @@ def main():
     fit_xl, warm_xl, ref_xl = mixed_xl_phase(dev, X, y)
     del X
     oracle_phase()
-    # the mixed phase's reference ran the MIXED kernels and mixed-xl's the
-    # continuous ones: not the main path
+    # the mixed phase's reference ran the MIXED kernels and the threshold
+    # rule's, mixed-xl's the continuous ones: not the main path (phase 4's
+    # plain engine launches nothing)
     main_launches = {k: rc.launches[k] - ref_mixed[k] - ref_xl[k]
                      for k in rc.launches}
-    for name in KERNELS:
+    for name in (*KERNELS, "threshold_stats", "threshold_weights"):
         check(main_launches[name] > 0, f"{name} launched on the main path")
+    check(main_launches["threshold_stats"]
+          == main_launches["threshold_weights"],
+          f"the threshold rule's two launches on the main path: "
+          f"{main_launches}")
     # 28. ReliefF's neighbour-pick kernel against the sort chain, timed
-    rule_timing = relieff_kernel_phase(dev, large_n_block(dev, X_n, y_n))
+    rule_timing = {"relieff_weights": relieff_kernel_phase(
+        dev, large_n_block(dev, X_n, y_n))}
+    # 29. MultiSURF's and SURF's rule kernels against their chain, timed
+    rule_timing.update(threshold_kernel_phase(
+        dev, large_n_block(dev, X_n, y_n, "multisurf")))
 
     # 21. the mesh: large-n through the automatic route (the continuous
     # kernels on every shard), the 150-state mixed input called directly
@@ -3827,6 +4075,10 @@ def main():
     oracle_phase_surf_relieff()
     for name in cont:
         check(rc.launches[name] > 0, f"{name} launched by SURF/ReliefF")
+    # ReliefF's kernel on the main path: these fits, their references plain
+    main_launches["relieff_weights"] = rc.launches["relieff_weights"]
+    check(main_launches["relieff_weights"] > 0,
+          "relieff_weights launched on the main path")
 
     # 10. the hybrid engine at size
     X, y = make_classification(n_samples=16384, n_features=2048,
@@ -3941,11 +4193,13 @@ def main():
         for name, (src, rep) in WINDOW_KERNELS.items()]
     summary["kernels"] += [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": main_launches[name],
          "completeness_launches": complete_launches[name],
-         **{k: rule_timing[0][k] for k in (
+         **{k: rule_timing[name][0][k] for k in (
              "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},
-         "shape": rule_timing[0]["shape"], "shapes": rule_timing,
+         "shape": rule_timing[name][0]["shape"],
+         "shapes": rule_timing[name],
          "registers": [regs for _, regs, _ in ptxas[name]],
          "spill_bytes": [spill for _, _, spill in ptxas[name]]}
         for name, (src, rep) in RULE_KERNELS.items()]

@@ -62,6 +62,13 @@ _SIGNATURES = {
                            _P, _P, _I, _I, _P, _P),
     # d, lab, yi, iid, vi, vals, w, rows, n, n_classes, k, stream
     "fs_relieff_weights": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # d, dbl, lab, yi, iid, vi, shift, denom, thr, coef, rows, n, multisurf,
+    # star, stream
+    "fs_threshold_stats": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _P),
+    # d, dbl, lab, yi, iid, vi, shift, thr, coef, w, rows, n, stream
+    "fs_threshold_weights": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -20,11 +20,14 @@ engine makes two passes over the data with weights in between:
 The passes live in ``relief_cuda.py`` (any data), ``relief_discrete.py``
 (all-discrete data) and ``relief_hybrid.py`` (mixed data, both halves);
 this module holds the rules, which are plain tensor code on D's device,
-and the routing between the engines.  On the fused engine ReliefF's W
-comes from one kernel instead (:func:`relieff_weights`,
-``csrc/relieff_select.cu``), equal to its rule's bit for bit.  Every rule returns a list of
-``(boolean mask (T, n), per-row coefficient (T,))`` terms with
-``W = sum_k r_k[:, None] * M_k``.
+and the routing between the engines.  On the fused engine on the card
+W comes from hand-written kernels instead: ReliefF's from one launch
+(:func:`relieff_weights`, ``csrc/relieff_select.cu``), equal to its
+rule's bit for bit; MultiSURF's and SURF's from two
+(:func:`threshold_weights`, ``csrc/threshold_rule.cu``), equal to theirs
+but where a pair lies within an ulp or so of the threshold.  Every rule
+returns a list of ``(boolean mask (T, n), per-row coefficient (T,))``
+terms with ``W = sum_k r_k[:, None] * M_k``.
 
 MultiSURF's and SURF's row statistics are taken in D's dtype (float32;
 float64 where pass 1 sums feature ranges apart, p >> n), of D less a
@@ -212,13 +215,18 @@ def _relieff_coefficients(n_hit, yi, k, class_probs):
 _NO_LABEL = -(1 << 31)
 
 
+def sample_labels(y_flat, valid_flat):
+    """The samples' labels as the rule kernels read them: (n,) int32, with
+    ``_NO_LABEL`` where the sample is invalid."""
+    return torch.where(valid_flat > 0, y_flat, _NO_LABEL).to(torch.int32)
+
+
 def relieff_labels(y_flat, valid_flat):
     """The per-fit half of ``csrc/relieff_select.cu``'s operands: (lab (n,)
-    int32, the samples' labels with ``_NO_LABEL`` where invalid; lab
-    sorted, from which each focal row's hits are counted).  The engine
-    makes them once a fit and hands them to every focal block's
-    :func:`relieff_weights`."""
-    lab = torch.where(valid_flat > 0, y_flat, _NO_LABEL).to(torch.int32)
+    int32 of :func:`sample_labels`; lab sorted, from which each focal
+    row's hits are counted).  The engine makes them once a fit and hands
+    them to every focal block's :func:`relieff_weights`."""
+    lab = sample_labels(y_flat, valid_flat)
     return lab, torch.sort(lab)[0]
 
 
@@ -266,22 +274,34 @@ def relieff_weights(D, yi, vi, iid, y_flat, valid_flat, k, class_probs,
     if D.device.type == "cpu":
         return _sum_rules(_rules_relieff(D, yi, vi, iid, y_flat, valid_flat,
                                          k, class_probs))
-    if D.device.type != "cuda":
-        raise ValueError(f"unsupported device {D.device}")
-    T, n = D.shape
-    if (D.dtype != torch.float32 or not D.is_contiguous() or n % 4
-            or D.data_ptr() % 16):
-        raise ValueError(
-            f"relieff_weights takes a contiguous float32 D with 16-byte "
-            f"aligned rows (n a multiple of 4); got {D.dtype}, {T}x{n}")
-    if k < 1 or yi.shape != (T,) or y_flat.shape != (n,):
-        raise ValueError(f"k >= 1, yi ({T},) and y_flat ({n},) expected")
+    T, n = _check_rule_operands("relieff_weights", (torch.float32,), D, yi,
+                                y_flat)
+    if k < 1:
+        raise ValueError(f"k >= 1 expected, got {k}")
     if labels is None:
         labels = relieff_labels(y_flat, valid_flat)
     lab, y32, vals = _relieff_select_operands(D, yi, vi, iid, labels, k,
                                               class_probs)
     return _relieff_launch(D, lab, y32, iid.to(torch.int64).contiguous(),
                            vi.to(torch.float32).contiguous(), vals, k)
+
+
+def _check_rule_operands(name, dtypes, D, yi, y_flat):
+    """Raise unless the rule kernel ``name`` takes D: a CUDA tensor of one
+    of ``dtypes``, contiguous with 16-byte aligned rows (n a multiple of
+    4), with yi (T,) and y_flat (n,); returns (T, n)."""
+    T, n = D.shape
+    if (D.dtype not in dtypes or not D.is_contiguous() or n % 4
+            or D.data_ptr() % 16):
+        kinds = " or ".join(str(t).split(".")[1] for t in dtypes)
+        raise ValueError(
+            f"{name} takes a contiguous {kinds} D with 16-byte aligned rows "
+            f"(n a multiple of 4); got {D.dtype}, {T}x{n}")
+    if yi.shape != (T,) or y_flat.shape != (n,):
+        raise ValueError(f"yi ({T},) and y_flat ({n},) expected")
+    if D.device.type != "cuda":
+        raise ValueError(f"unsupported device {D.device}")
+    return T, n
 
 
 def _relieff_launch(D, lab, y32, iid, vi, vals, k):
@@ -299,6 +319,97 @@ def _relieff_launch(D, lab, y32, iid, vi, vals, k):
             torch.cuda.current_stream(D.device).cuda_stream)
     _build.check(err, "relieff_weights")
     launches["relieff_weights"] += 1
+    return W
+
+
+def threshold_weights(D, yi, vi, iid, y_flat, valid_flat, n_real, *, algo,
+                      use_star, labels=None):
+    """MultiSURF's or SURF's (``algo``) pair weights W (T, n) float32 of one
+    focal block: ``_sum_rules(pair_weight_rules(...))``.
+
+    On a CPU tensor that chain is what runs.  On a CUDA tensor of float32
+    or float64 two launches of ``csrc/threshold_rule.cu`` write W from D
+    (12 B a pair of device memory; D and W are all a block holds): the
+    row statistics and thresholds, inside the span ``weight_rules.stats``
+    as in the chain, then the weights; anything else raises.  The row
+    shift and 1 / (n_real - 1) are the chain's own tensors.  The kernels
+    sum in float64, so a pair within an ulp or so of the chain's threshold
+    may take the other side of it; every other W equals the chain's bit
+    for bit.  ``relief_cuda.launches["threshold_stats"]`` and
+    ``["threshold_weights"]`` count the launches.  ``labels`` is
+    :func:`sample_labels` of (y_flat, valid_flat), made here when not
+    given."""
+    if algo not in ("multisurf", "surf"):
+        raise ValueError(f"threshold_weights takes 'multisurf' or 'surf', "
+                         f"got {algo!r}")
+    if D.device.type == "cpu":
+        return chain_weights(D, yi, vi, iid, y_flat, valid_flat, n_real,
+                             None, algo=algo, use_star=use_star, k=0)
+    _check_rule_operands("threshold_weights", (torch.float32, torch.float64),
+                         D, yi, y_flat)
+    with span("weight_rules.stats", device=D.device):
+        ops, shift, denom = _threshold_operands(
+            D, yi, vi, iid, y_flat, valid_flat, n_real, labels)
+        thr, coef = _threshold_stats(D, ops, shift, denom,
+                                     algo == "multisurf", use_star)
+    return _threshold_launch(D, ops, shift, thr, coef)
+
+
+def _threshold_operands(D, yi, vi, iid, y_flat, valid_flat, n_real,
+                        labels=None):
+    """(ops, shift, denom): the operands of :func:`threshold_weights`'
+    launches.  ``ops`` is (labels int32, yi int32, iid int64, vi float32),
+    ``shift`` the chain's row shift and ``denom`` its 1 / (n_real - 1), of
+    D's dtype; ``labels`` as there."""
+    n = D.shape[1]
+    if labels is None:
+        labels = sample_labels(y_flat, valid_flat)
+    if (labels.dtype != torch.int32 or labels.shape != (n,)
+            or not labels.is_contiguous() or labels.data_ptr() % 16):
+        raise ValueError(f"labels must be sample_labels' contiguous ({n},) "
+                         f"int32 tensor")
+    ops = (labels, yi.to(torch.int32).contiguous(),
+           iid.to(torch.int64).contiguous(), vi.to(torch.float32).contiguous())
+    shift = _row_shift(D, iid, valid_flat).contiguous()
+    denom = 1.0 / (n_real.to(D.device, D.dtype) - 1.0)
+    return ops, shift, denom
+
+
+def _threshold_stats(D, ops, shift, denom, multisurf, star):
+    """(thr (T,) of D's dtype, coef (T, 4) float32) from one launch of
+    ``csrc/threshold_rule.cu``'s statistics on the operands of
+    :func:`_threshold_operands`."""
+    from .. import _build
+    from .relief_cuda import launches
+    T, n = D.shape
+    thr = torch.empty_like(shift)
+    coef = torch.empty((T, 4), dtype=torch.float32, device=D.device)
+    with torch.cuda.device(D.device):
+        err = _build.load().fs_threshold_stats(
+            D.data_ptr(), int(D.dtype == torch.float64),
+            *(t.data_ptr() for t in ops), shift.data_ptr(), denom.data_ptr(),
+            thr.data_ptr(), coef.data_ptr(), T, n, int(multisurf), int(star),
+            torch.cuda.current_stream(D.device).cuda_stream)
+    _build.check(err, "threshold_stats")
+    launches["threshold_stats"] += 1
+    return thr, coef
+
+
+def _threshold_launch(D, ops, shift, thr, coef):
+    """W (T, n) float32 from one launch of ``csrc/threshold_rule.cu``'s
+    weights on the operands of :func:`_threshold_stats` and its result."""
+    from .. import _build
+    from .relief_cuda import launches
+    T, n = D.shape
+    W = torch.empty(D.shape, dtype=torch.float32, device=D.device)
+    with torch.cuda.device(D.device):
+        err = _build.load().fs_threshold_weights(
+            D.data_ptr(), int(D.dtype == torch.float64),
+            *(t.data_ptr() for t in ops), shift.data_ptr(), thr.data_ptr(),
+            coef.data_ptr(), W.data_ptr(), T, n,
+            torch.cuda.current_stream(D.device).cuda_stream)
+    _build.check(err, "threshold_weights")
+    launches["threshold_weights"] += 1
     return W
 
 
@@ -322,9 +433,20 @@ def pair_weight_rules(D, yi, vi, iid, y_flat, valid_flat, n_real,
     raise ValueError(f"unknown Relief algorithm {algo!r}")
 
 
+def chain_weights(D, yi, vi, iid, y_flat, valid_flat, n_real, class_probs,
+                  *, algo, use_star, k):
+    """W (T, n) float32 of one focal block by the rules of
+    :func:`pair_weight_rules` summed in PyTorch, on any device: the rule
+    the kernels of :func:`relieff_weights` and :func:`threshold_weights`
+    replace on the card."""
+    return _sum_rules(pair_weight_rules(
+        D, yi, vi, iid, y_flat, valid_flat, n_real, class_probs, algo=algo,
+        use_star=use_star, k=k))
+
+
 def relief_engine_core(x_f, yv_f, valid_f, row0, x_a, yv_a, valid_a,
                        recip, disc, n_real, class_probs, *, algo, use_star,
-                       k, nb, n_disc=0, pass1=None, pass2=None):
+                       k, nb, n_disc=0, pass1=None, pass2=None, rule=None):
     """Unnormalised scores (p_pad,) float32 contributed by the focal rows
     ``x_f`` against all rows ``x_a``, on their device.
 
@@ -335,7 +457,9 @@ def relief_engine_core(x_f, yv_f, valid_f, row0, x_a, yv_a, valid_a,
     2; block scores are added in block order.  The first ``n_disc``
     columns (a multiple of 4) are the discrete ones.  ``pass1`` and
     ``pass2`` default to the kernel wrappers of ``relief_cuda.py``
-    (:func:`~.relief_cuda.dist_matrix`, :func:`~.relief_cuda.accumulate`).
+    (:func:`~.relief_cuda.dist_matrix`, :func:`~.relief_cuda.accumulate`);
+    ``rule``, called as :func:`chain_weights`, replaces the weight rule
+    (by default :func:`relieff_weights` or :func:`threshold_weights`).
     Counterpart of JAX's ``relief_engine_core``.
     """
     if pass1 is None or pass2 is None:
@@ -344,8 +468,8 @@ def relief_engine_core(x_f, yv_f, valid_f, row0, x_a, yv_a, valid_a,
     mixed = n_disc > 0
     dev = x_a.device
     scores = torch.zeros(x_a.shape[1], dtype=torch.float32, device=dev)
-    if algo == "relieff":
-        labels = relieff_labels(yv_a, valid_a)
+    labels = (relieff_labels if algo == "relieff" else sample_labels)(
+        yv_a, valid_a)
     for b0 in range(0, x_f.shape[0], nb):
         count("focal_blocks")
         xi = x_f[b0:b0 + nb]
@@ -353,21 +477,21 @@ def relief_engine_core(x_f, yv_f, valid_f, row0, x_a, yv_a, valid_a,
         with span("fused.pass1", device=dev):
             D = pass1(x_a, recip, disc, xi=xi, mixed=mixed)
         with span("weight_rules", device=dev):
+            yi, vi = yv_f[b0:b0 + nb], valid_f[b0:b0 + nb]
             if algo == "relieff":
                 # the kernel takes float32 D: p >> n's float64 D rounded
                 D = D.to(torch.float32)
-                W = relieff_weights(D, yv_f[b0:b0 + nb], valid_f[b0:b0 + nb],
-                                    iid, yv_a, valid_a, k, class_probs,
-                                    labels)
-                del D
+            if rule is not None:
+                W = rule(D, yi, vi, iid, yv_a, valid_a, n_real, class_probs,
+                         algo=algo, use_star=use_star, k=k)
+            elif algo == "relieff":
+                W = relieff_weights(D, yi, vi, iid, yv_a, valid_a, k,
+                                    class_probs, labels)
             else:
-                rules = pair_weight_rules(
-                    D, yv_f[b0:b0 + nb], valid_f[b0:b0 + nb], iid, yv_a,
-                    valid_a, n_real, class_probs, algo=algo,
-                    use_star=use_star, k=k)
-                del D   # freed before W is summed
-                W = _sum_rules(rules)
-                del rules
+                W = threshold_weights(
+                    D, yi, vi, iid, yv_a, valid_a, n_real, algo=algo,
+                    use_star=use_star, labels=labels)
+            del D
         with span("fused.pass2", device=dev):
             scores += pass2(x_a, W, recip, disc, xi=xi, mixed=mixed,
                             n_disc=n_disc)

@@ -16,8 +16,10 @@ for every float4 group; the fused engine orders its columns by kind
 block are each of one kind.  The kernels take rows that are 16-byte
 aligned (p a multiple of 4, and n too in pass 2), so every engine pads
 features to ``TILE_FEATURES``.  Between the passes the pair weights W
-come from D by the rules of ``relief.pair_weight_rules``.  Where p >> n
-pass 1 sums feature ranges apart, in float64, and D is float64.
+come from D by one rule kernel a rule on the card
+(``relief.relieff_weights``, ``relief.threshold_weights``) and by the
+rules of ``relief.pair_weight_rules`` on the CPU.  Where p >> n pass 1
+sums feature ranges apart, in float64, and D is float64.
 
 Each wrapper (:func:`dist_matrix`, :func:`accumulate`) launches its kernel
 for a CUDA tensor, or raises: it never falls back.  For a CPU tensor it
@@ -71,9 +73,15 @@ _PASS2_STAGE = 64
 _PASS2_MIN_SPAN = 1024
 _PASS2_TARGET_BLOCKS = 1056
 
-# Bytes per (focal row, sample) pair a block needs at its peak: D and W,
-# plus the rules' float32 and bool temporaries (_rules_multisurf holds
-# about six (nb, n_pad) arrays), with headroom.
+# Bytes per (focal row, sample) pair of a focal block for MultiSURF and
+# SURF.  On the card their rule (relief.threshold_weights) holds W beside
+# D and nothing else a pair, 8 B (12 where p >> n gives a float64 D);
+# the chain it replaced, still the rule on the CPU and of the mesh and
+# hybrid layouts, held about six (nb, n_pad) float32 and bool temporaries
+# besides, which this budget was sized for.  It stays at 32 for its block
+# plan: at large-n (50,048 samples) it gives 2 blocks of 25,024 rows, and
+# the blocks set the order of the float32 score sums, so it also fixes
+# the scores' bits.
 _BYTES_PER_PAIR = 32
 # ReliefF's rule on the card (relief.relieff_weights) holds W beside D and
 # nothing else a pair: a large-n fit peaked at 1.1377 GiB, 8.3 B a pair of
@@ -94,7 +102,8 @@ _REF_CHUNK_ELEMS = 1 << 26
 
 launches = {"relief_pass1_cont": 0, "relief_pass1_mixed": 0,
             "relief_pass2_cont": 0, "relief_pass2_mixed": 0,
-            "relieff_weights": 0}
+            "relieff_weights": 0, "threshold_stats": 0,
+            "threshold_weights": 0}
 counters("launches", launches)
 
 
@@ -499,13 +508,15 @@ def relief_fused_scores(
     device: torch.device | None = None,
     _pass1=dist_matrix,
     _pass2=accumulate,
+    _rule=None,
 ) -> np.ndarray:
     """Relief-family scores through the fused engine, divided by n.
 
     ``x`` is a tensor (scored on its own device) or an array (copied to
-    ``device``, default CPU).  ``_pass1`` and ``_pass2`` replace the passes
-    for a reference run of the same engine; the default is the kernel
-    wrappers.
+    ``device``, default CPU).  ``_pass1``, ``_pass2`` and ``_rule`` replace
+    the passes and the weight rule for a reference run of the same engine
+    (``relief_engine_core``'s ``pass1``, ``pass2`` and ``rule``); the
+    default is the kernel wrappers.
     """
     if not isinstance(x, torch.Tensor):
         x = torch.tensor(np.asarray(x), dtype=torch.float32)
@@ -521,5 +532,5 @@ def relief_fused_scores(
             fl.xp, fl.yv, fl.valid, 0, fl.xp, fl.yv, fl.valid, fl.recip,
             fl.disc, fl.n_real, fl.class_probs, algo=algo, use_star=use_star,
             k=int(n_neighbors), nb=plan.nb, n_disc=fl.n_disc, pass1=_pass1,
-            pass2=_pass2)
+            pass2=_pass2, rule=_rule)
         return (scores.index_select(0, fl.pos) / fl.n_real).cpu().numpy()

@@ -185,10 +185,40 @@ def test_rule_stats_span_and_pass1_ranges(info_log, monkeypatch, rng):
     names = [r.getMessage().split(":")[0] for r in info_log.records]
     root = info_log.records[names.index("fit[MultiSURF]")]
     assert root.counts["pass1_ranges"] == ranges
+    # the chain ran on the CPU: no rule kernel
+    assert "launches.threshold_stats" not in root.counts
+    assert "launches.threshold_weights" not in root.counts
     spans = _spans(info_log.records)
     rules = [sp[0] for sp in spans["weight_rules"]]
     assert [sp[1] for sp in spans["weight_rules.stats"]] == rules
     assert len(rules) == len(blocks)
+
+
+@pytest.mark.card
+def test_card_fit_counts_the_rule_launches(info_log, monkeypatch):
+    """A MultiSURF fit of a CUDA tensor in three focal blocks launches each
+    kernel of ``csrc/threshold_rule.cu`` once a block, counted on the
+    root, with one ``weight_rules.stats`` span inside each block's
+    ``weight_rules``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    card = torch.device("cuda", 0)
+    rng = np.random.RandomState(0)
+    n, p = 150, 600
+    monkeypatch.setattr(rc, "_block_budget_bytes", lambda *a, **k:
+                        rc._BYTES_PER_PAIR * 192 * rc.TILE_ROWS)
+    assert rc.block_plan(n, p, card).nb == rc.TILE_ROWS
+    X = torch.from_numpy(rng.rand(n, p).astype(np.float32)).to(card)
+    MultiSURF().fit(X, rng.randint(0, 2, n))
+    names = [r.getMessage().split(":")[0] for r in info_log.records]
+    root = info_log.records[names.index("fit[MultiSURF]")]
+    assert root.counts["focal_blocks"] == 3
+    assert root.counts["launches.threshold_stats"] == 3
+    assert root.counts["launches.threshold_weights"] == 3
+    spans = _spans(info_log.records)
+    rules = [sp[0] for sp in spans["weight_rules"]]
+    assert [sp[1] for sp in spans["weight_rules.stats"]] == rules
+    assert len(rules) == 3
 
 
 def test_registered_counter_deltas(info_log, monkeypatch, rng):

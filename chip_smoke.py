@@ -208,9 +208,8 @@ Phases, one or two lines each on stdout:
     ``window_partials``).  Each timed with CUDA events, as the engine
     calls it, beside its twin, the eager chain it replaced (for the
     one-hot, the twin itself) and its bound in bytes.  Phases 7, 8 and
-    24 set the window kernels' counts (``relief_discrete.launches``) to
-    0 before their fits and read them after: both kernels must launch in
-    each;
+    24 count the window kernels' launches (``_build.launches``) over
+    their fits: both kernels must launch in each;
 28. relieff, after phases 4-6: ReliefF's neighbour-pick kernel
     (``csrc/relieff_select.cu``, ``ops/relief.py:relieff_weights``)
     against its twin, the sort chain ``_sum_rules(_rules_relieff(...))``,
@@ -244,13 +243,14 @@ time, and 18-20 the share of the one-hots' HBM floor (bytes written and
 read over 3.35 TB/s) in the search; each must run int8 GEMMs and launch
 no Relief kernel.
 
-Each mesh fit sets the launch counts and ``relief_discrete.gemm_ops`` to
-0 before it and reads them after it: the continuous layouts must launch
-their kernels on the shards, the discrete ones run int8 GEMMs and launch
-no Relief kernel, and each must reach its layout's function.
+Each mesh fit counts the launches over it, and sets
+``relief_discrete.gemm_ops`` to 0 before it and reads it after it: the
+continuous layouts must launch their kernels on the shards, the discrete
+ones run int8 GEMMs and launch no Relief kernel, and each must reach its
+layout's function.
 
-Phases 4-6 are the main path of the four kernels: every kernel launch
-count is set to 0 before them and read after them, less the launches of
+Phases 4-6 are the main path of the four kernels: every kernel's
+launches are counted over them (``_build.launches``), less the launches of
 the small mixed fit's ``MIXED``-kernel reference and of mixed-xl's
 hybrid referee, and each kernel must have been launched there by a fit
 (the ``MIXED`` kernels by the 150-state and mixed-xl fits).  Phase 23's
@@ -329,7 +329,7 @@ KERNELS = {
     "relief_pass2_mixed": ("fastselect_tpu_torch/csrc/relief_pass2.cu",
                            "fastselect_tpu/ops/relief_pallas.py:103"),
 }
-# The discrete engine's window kernels (``relief_discrete.launches``) ->
+# The discrete engine's window kernels ->
 # (source, the JAX code it stands for: a fusion XLA makes inside the
 # engine's window scan, not a Pallas kernel)
 WINDOW_KERNELS = {
@@ -338,8 +338,8 @@ WINDOW_KERNELS = {
     "window_partials": ("fastselect_tpu_torch/csrc/relief_discrete.cu",
                         "fastselect_tpu/ops/relief_discrete.py:596"),
 }
-# ReliefF's neighbour-pick kernel (``relief_cuda.launches``) -> (source,
-# the JAX code it stands for: XLA's sort inside the rule, no Pallas kernel)
+# The fused engine's rule kernels -> (source, the JAX code each stands
+# for: XLA's fusions inside the rule, no Pallas kernel)
 RULE_KERNELS = {
     "relieff_weights": ("fastselect_tpu_torch/csrc/relieff_select.cu",
                         "fastselect_tpu/ops/relief.py:_rules_relieff"),
@@ -348,6 +348,8 @@ RULE_KERNELS = {
     "threshold_weights": ("fastselect_tpu_torch/csrc/threshold_rule.cu",
                           "fastselect_tpu/ops/relief.py:_rules_multisurf"),
 }
+# the fused engine's kernels: its two passes of each kind and its rules
+FUSED_KERNELS = (*KERNELS, *RULE_KERNELS)
 # __global__ functions of each of the nine kernels, as ptxas names them
 # (mangled: pass 1's kind template has the instances ILb0 and ILb1, each
 # with a float and a double accumulator)
@@ -496,6 +498,18 @@ def check(ok, what):
         raise RuntimeError(f"check failed: {what}")
 
 
+def launch_counts(names=FUSED_KERNELS):
+    """The launches so far of each kernel of ``names``
+    (``_build.launches``)."""
+    return {k: _build.launches[k] for k in names}
+
+
+def launches_since(before):
+    """The launches of each kernel of ``before`` (:func:`launch_counts`)
+    since it was taken."""
+    return {k: _build.launches[k] - v for k, v in before.items()}
+
+
 def run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True,
                           timeout=60).stdout.strip()
@@ -604,9 +618,9 @@ def fit_phase(dev, label, X, y, must_launch, n_select=10, make=MultiSURF,
     y_enc = np.unique(y, return_inverse=True)[1]
     kw = engine_args(est, y_enc)
     plan = rc.block_plan(X.shape[0], X.shape[1], dev, kw["algo"])
-    before = dict(rc.launches)
+    before = launch_counts()
     est, fit_s, peak_gb = timed_fit(dev, est, X, y)
-    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    moved = launches_since(before)
     warm_s = [timed_fit(dev, make(n_features_to_select=n_select, **params),
                         X, y)[1] for _ in range(warm)]
     s = est.feature_importances_
@@ -623,15 +637,15 @@ def fit_phase(dev, label, X, y, must_launch, n_select=10, make=MultiSURF,
           f"{label}: finite scores of shape ({X.shape[1]},)")
     x_dev = torch.tensor(X, dtype=torch.float32, device=dev)
     fa = analyze_features(x_dev, est.discrete_limit)
-    before = dict(rc.launches)
+    before = launch_counts()
     t0 = time.perf_counter()
     ref = rc.relief_fused_scores(
         x_dev, y_enc, fa.recip, fa.is_discrete, device=dev,
         _pass1=rc.dist_matrix_ref, _pass2=rc.accumulate_ref,
-        _rule=relief_mod.chain_weights, **kw)
+        _rule=relief_mod.chain_rule, **kw)
     ref_s = time.perf_counter() - t0
-    check(rc.launches == before, f"{label}: the plain engine launched no "
-          f"kernel: {before} -> {rc.launches}")
+    check(launch_counts() == before, f"{label}: the plain engine launched no "
+          f"kernel: {before} -> {launch_counts()}")
     ref_top = np.argsort(ref)[::-1][:n_select]
     err = float(np.abs(s - ref).max())
     check(err <= fit_tol(ref), f"{label}: max |scores - plain engine| = "
@@ -741,7 +755,7 @@ def fused_mixed_scores(dev, X, y_enc, kw, order, recip=None,
     discrete and recip 1 unless given: (scores, seconds, launches).  Both
     engines then add D in the same row order in the weight rules' float32
     row sums."""
-    before = dict(rc.launches)
+    before = launch_counts()
     xs = torch.from_numpy(np.ascontiguousarray(X[order])).to(dev)
     xs = xs.to(torch.float32)
     p = X.shape[1]
@@ -755,7 +769,7 @@ def fused_mixed_scores(dev, X, y_enc, kw, order, recip=None,
     sec = time.perf_counter() - t0
     del xs
     torch.cuda.empty_cache()
-    return ref, sec, {k: rc.launches[k] - before[k] for k in rc.launches}
+    return ref, sec, launches_since(before)
 
 
 def discrete_phase(dev, label, est, X, y, tier, warm=0):
@@ -768,8 +782,8 @@ def discrete_phase(dev, label, est, X, y, tier, warm=0):
     got = rd.discrete_tier(n, p, 3, y_enc, kw["algo"],
                            kw.get("class_probs"), device=dev)
     check(got == tier, f"{label}: tier {got}, expected {tier}")
-    before = dict(rc.launches)
-    rd.reset_launch_counts()
+    before = launch_counts()
+    window0 = launch_counts(WINDOW_KERNELS)
     times, peaks = [], []
     for _ in range(1 + warm):
         rd.reset_gemm_ops()
@@ -777,8 +791,8 @@ def discrete_phase(dev, label, est, X, y, tier, warm=0):
         times.append(sec)
         peaks.append(peak)
     ops = rd.gemm_ops
-    window = dict(rd.launches)
-    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    window = launches_since(window0)
+    moved = launches_since(before)
     s = est.feature_importances_
     check(est.effective_backend_ == "cuda", f"{label}: effective_backend_")
     check(not any(moved.values()), f"{label}: fused launches {moved}")
@@ -859,11 +873,11 @@ def hybrid_phase(dev, label, X, y, n_select=10, warm=0):
     square = plan.nb == plan.n_pad
     sorted_rows = square and rd._v2_layout(
         y_enc, n, 8, kw["algo"], kw.get("class_probs")) is not None
-    before = dict(rc.launches)
+    before = launch_counts()
     rd.reset_gemm_ops()
     est, fit_s, peak_gb = timed_fit(dev, est, X, y)
     ops = rd.gemm_ops
-    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    moved = launches_since(before)
     warm_s = [timed_fit(dev, est, X, y)[1] for _ in range(warm)]
     s = est.feature_importances_
     check(est.effective_backend_ == "cuda", f"{label}: effective_backend_")
@@ -922,10 +936,10 @@ def mixed_xl_phase(dev, X, y, warm=1):
     route = relief_engine(n, disc, n_states)
     check(route == "fused", f"{label}: route {route}")
     plan = rc.block_plan(n, p, dev, n_disc=int(disc.sum()))
-    before = dict(rc.launches)
+    before = launch_counts()
     est, fit_s, peak_gb = timed_fit(dev, MultiSURF(n_features_to_select=10),
                                     X, y)
-    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    moved = launches_since(before)
     warm_s = [timed_fit(dev, MultiSURF(n_features_to_select=10), X, y)[1]
               for _ in range(warm)]
     s = est.feature_importances_
@@ -941,7 +955,7 @@ def mixed_xl_phase(dev, X, y, warm=1):
     check(s.shape == (p,) and np.isfinite(s).all(),
           f"{label}: finite scores of shape ({p},)")
 
-    before = dict(rc.launches)
+    before = launch_counts()
     rd.reset_gemm_ops()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -949,7 +963,7 @@ def mixed_xl_phase(dev, X, y, warm=1):
                                   algo="multisurf", codes=fa.codes,
                                   n_states=n_states)
     ref_s = time.perf_counter() - t0
-    ref_moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    ref_moved = launches_since(before)
     ops = rd.gemm_ops
     del x_dev, fa
     torch.cuda.empty_cache()
@@ -979,11 +993,11 @@ def device_fit_phase(dev, label, X, y, host_est, host_s):
     """``fit`` on X already on the card as a tensor: the host-array fit's
     model, with no host copy of X.  Returns the fit's seconds."""
     Xt = torch.from_numpy(X).to(dev)
-    before = dict(rc.launches)
+    before = launch_counts()
     est, fit_s, peak_gb = timed_fit(
         dev, MultiSURF(n_features_to_select=len(host_est.top_features_)),
         Xt, y)
-    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    moved = launches_since(before)
     err = float(np.abs(est.feature_importances_
                        - host_est.feature_importances_).max())
     check(est.effective_backend_ == "cuda", f"{label}: effective_backend_")
@@ -1019,11 +1033,11 @@ def turf_phase(dev, label, X, y, kind):
     for _ in range(2):
         _relief_base.reset_upload_count()
         rd.reset_gemm_ops()
-        before = dict(rc.launches)
+        before = launch_counts()
         fast, sec, peak_gb = timed_fit(dev, TuRF(MultiSURF(), **kw), X, y)
         fast_s.append(sec)
         uploads, ops = _relief_base.uploads, rd.gemm_ops
-        moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+        moved = launches_since(before)
         _relief_base.reset_upload_count()
         slow, sec, _ = timed_fit(dev, RefitTuRF(MultiSURF(), **kw), X, y)
         slow_s.append(sec)
@@ -1141,9 +1155,9 @@ def selector_phase(dev, label, make, X, y, warm=1):
     """A first fit and ``warm`` more of ``make()`` on the card, checked to
     run int8 GEMMs and no Relief kernel; prints one line and returns the
     first fit's estimator and the timings."""
-    before = dict(rc.launches)
+    before = launch_counts()
     fits = [selector_fit(dev, make(), X, y) for _ in range(1 + warm)]
-    check(rc.launches == before, f"{label}: no Relief kernel launched")
+    check(launch_counts() == before, f"{label}: no Relief kernel launched")
     check(all(f[3] > 0 for f in fits), f"{label}: int8 GEMMs ran")
     est, first_s, peak, ops, greedy_s = fits[0]
     warm_s = [f[1] for f in fits[1:]]
@@ -1424,10 +1438,10 @@ def mdr_run(dev, label, make, X, y, planted, warm=1):
     fold; prints one line (times, GEMM operations and rate, the one-hots'
     HBM floor, peak memory) and returns the first fit's estimator, its
     GEMM operations and the fits' seconds."""
-    before = dict(rc.launches)
+    before = launch_counts()
     fits = [mdr_fit(dev, make(), X, y) for _ in range(1 + warm)]
     est = fits[0]["est"]
-    check(rc.launches == before, f"{label}: no Relief kernel launched")
+    check(launch_counts() == before, f"{label}: no Relief kernel launched")
     check(all(f["gemm_ops"] > 0 for f in fits), f"{label}: int8 GEMMs ran")
     check(est.effective_backend_ == dev.type,
           f"{label}: effective_backend_ {est.effective_backend_}")
@@ -1795,7 +1809,7 @@ def forced_fits(dev, label, X, y, route, warm=1):
     more: each must take ``route`` and launch no fused kernel.  Returns
     (estimator, seconds of each fit, int8 ops of the first, peak GB, the
     first fit's ``relief_discrete`` phase records)."""
-    before = dict(rc.launches)
+    before = launch_counts()
     times, peaks, ops, records = [], [], 0, None
     for i in range(1 + warm):
         rd.reset_gemm_ops()
@@ -1810,7 +1824,7 @@ def forced_fits(dev, label, X, y, route, warm=1):
         ops = ops or rd.gemm_ops
         times.append(sec)
         peaks.append(peak)
-    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    moved = launches_since(before)
     check(not any(moved.values()), f"{label}: fused launches {moved}")
     check(ops > 0, f"{label}: no int8 GEMM ran")
     check(est.effective_backend_ == dev.type, f"{label}: effective_backend_")
@@ -2002,7 +2016,7 @@ def gwas_gather_phase(dev, n=8192, p=5_000_000, seed=25, sample=1024,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     rd.reset_gemm_ops()
-    before = dict(rc.launches)
+    before = launch_counts()
     with RouteSpy() as spy, PhaseRecords("relief_discrete.gather") as rec:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2012,7 +2026,7 @@ def gwas_gather_phase(dev, n=8192, p=5_000_000, seed=25, sample=1024,
         fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     ops = rd.gemm_ops
-    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    moved = launches_since(before)
     check(spy.seen == ["gather-2"], f"gwas-gather: routes {spy.seen}")
     check(not any(moved.values()), f"gwas-gather: fused launches {moved}")
     check(s.shape == (p,) and np.isfinite(s).all(),
@@ -2058,11 +2072,11 @@ def gwas_phase(dev, X, y, head, sizes=None):
     compared = pack_checks(dev, **sizes.get("pack", {}))
     print(f"gwas pack checks: {compared} tensors packed, unpacked, matched "
           f"and promoted on the card equal the CPU's", flush=True)
-    rd.reset_launch_counts()
+    window0 = launch_counts(WINDOW_KERNELS)
     res = {"routes": headline_routes(dev, X, y, head)}
     res["gwas-promote"] = gwas_promote_phase(dev, **sizes.get("promote", {}))
     res["gwas-gather"] = gwas_gather_phase(dev, **sizes.get("gather", {}))
-    res["window_launches"] = dict(rd.launches)
+    res["window_launches"] = launches_since(window0)
     # the window kernels run on the card; on the CPU their twins do
     check(dev.type != "cuda" or all(res["window_launches"].values()),
           f"gwas: window kernels launched {res['window_launches']}")
@@ -2132,18 +2146,18 @@ def mesh_fit_phase(mesh, label, make, X, y, single, route, kind, tol,
     """``make().fit(X, y)`` through the automatic route with ``mesh``
     (then ``warm`` more, timed): it must call ``route`` (module, name) and
     run the ``kind`` of work ('cont' or 'mixed' kernels, or 'gemm': int8
-    GEMMs and no Relief kernel), launch counts set to 0 before the first
-    fit and read after it; its scores agree with ``single`` (the fit on
-    one device) within ``tol`` (atol, rtol), its top_features_ alike.
+    GEMMs and no Relief kernel), launches counted over the first fit;
+    its scores agree with ``single`` (the fit on one device) within
+    ``tol`` (atol, rtol), its top_features_ alike.
     The first mesh's scores are kept in ``MESH_RESULTS[label]``; a ring
     fit's sweeps and rules are timed apart (``ring_phases``).
     Returns (first fit's seconds, warm fits' seconds, peak GB)."""
     with MeshRoute(mesh, [route], ring_bytes) as mr, \
             PhaseRecords("ring.", on=ring_bytes is not None) as ring_log:
-        rc.reset_launch_counts()
+        before = launch_counts()
         rd.reset_gemm_ops()
         est, sec, peak = mesh_timed(mesh, lambda: make().fit(X, y))
-        launches, ops = dict(rc.launches), rd.gemm_ops
+        launches, ops = launches_since(before), rd.gemm_ops
         warm_s = [mesh_timed(mesh, lambda: make().fit(X, y))[1]
                   for _ in range(warm)]
     s = est.feature_importances_
@@ -2190,11 +2204,11 @@ def mesh_mixed_phase(dev, mesh, X, y, single_est, discrete_limit=200):
     y_enc = np.unique(y, return_inverse=True)[1]
     x_dev = torch.tensor(X, dtype=torch.float32, device=dev)
     fa = analyze_features(x_dev, discrete_limit)
-    rc.reset_launch_counts()
+    before = launch_counts()
     s, sec, peak = mesh_timed(mesh, lambda: parallel.sharded_relief_scores(
         x_dev, y_enc, fa.recip, fa.is_discrete, algo="multisurf",
         devices=mesh))
-    launches = dict(rc.launches)
+    launches = launches_since(before)
     MESH_RESULTS.setdefault(label, s)
     single = single_est.feature_importances_
     err = float(np.abs(s - single).max())
@@ -2220,14 +2234,14 @@ def mesh_mdr_phase(dev, mesh, X, y, planted, single):
     key equal to the one-device search's (``single``: phase 19's result)."""
     label = "mesh-mdr"
     k = 3
-    before = dict(rc.launches)
+    before = launch_counts()
     with MeshRoute(mesh, [(mdr_mod, "ShardedMDRFoldScorer")]) as mr:
         rd.reset_gemm_ops()
         est, fit_s, peak = mesh_timed(mesh, lambda: MDR(k=k, cv=5).fit(X, y))
         ops = rd.gemm_ops
     check(mr.calls == ["ShardedMDRFoldScorer"],
           f"{label}: the fit made {mr.calls}")
-    check(rc.launches == before and ops > 0,
+    check(launch_counts() == before and ops > 0,
           f"{label}: int8 GEMMs ({ops} ops) and no Relief kernel")
     check(est.best_interaction_ == planted and est.best_cvc_ == 5,
           f"{label}: best {est.best_interaction_} CVC {est.best_cvc_}")
@@ -2442,16 +2456,17 @@ def procs_timed(dev, fn):
 
 def procs_run(dev, fn, route, keep, warm=0, ring_bytes=None):
     """One layout in a process of the group: ``fn()`` through ``route``
-    (module, name) on the group's own mesh, then ``warm`` more; the launch
-    counts, ``gemm_ops`` and the collectives' counts set to 0 before the
-    first and read after it."""
+    (module, name) on the group's own mesh, then ``warm`` more; the
+    launches counted over the first, and ``gemm_ops`` and the
+    collectives' counts set to 0 before it and read after it."""
     with MeshRoute(None, [route], ring_bytes) as mr, \
             PhaseRecords("ring.", on=ring_bytes is not None) as ring_log:
-        rc.reset_launch_counts()
+        before = launch_counts()
         rd.reset_gemm_ops()
         psh.reset_comm()
         out, sec, peak = procs_timed(dev, fn)
-        launches, ops, comm = dict(rc.launches), rd.gemm_ops, dict(psh.comm)
+        launches, ops, comm = (launches_since(before), rd.gemm_ops,
+                               dict(psh.comm))
         ring = list(ring_log.records)
         warm_s = [procs_timed(dev, fn)[1] for _ in range(warm)]
     return {"result": keep(out), "first_s": sec, "warm_s": warm_s,
@@ -2715,10 +2730,10 @@ def staging_fits(dev, X, y, td, warm=2):
                              transfer_dtype=td)
     times, peaks = [], []
     for _ in range(1 + warm):
-        before = dict(rc.launches)
+        before = launch_counts()
         est, sec, peak = timed_fit(dev, make(), X, y)
         for name in ("relief_pass1_cont", "relief_pass2_cont"):
-            check(rc.launches[name] > before[name],
+            check(_build.launches[name] > before[name],
                   f"staging {td}: the fit launched {name}")
         times.append(sec)
         peaks.append(peak)
@@ -2907,7 +2922,7 @@ def relieff_rule_fits(dev, label, make, X, y, must_launch=(), tier=None,
         ti = rd._discrete_tile_sizes(n, p, 3)[0]
         pairs = ti * rd._round_up(n, ti)
         shape = f"tier {tier}, ti {ti}"
-    before = dict(rc.launches)
+    before = launch_counts()
     rd.reset_gemm_ops()
     base = torch.cuda.memory_allocated(dev)
     times, peaks = [], []
@@ -2915,7 +2930,7 @@ def relieff_rule_fits(dev, label, make, X, y, must_launch=(), tier=None,
         est, sec, peak = timed_fit(dev, make(), X, y)
         times.append(sec)
         peaks.append(peak)
-    moved = {k: rc.launches[k] - before[k] for k in rc.launches}
+    moved = launches_since(before)
     ops = rd.gemm_ops
     rules, device_s = rules_device_s(make, X, y,
                                      BUILD_DIR / f"trace-relieff-{label}")
@@ -3005,11 +3020,11 @@ def completeness_phase(dev, X_n, y_n, X_mf, y_mf, large_n_scores, refs,
                        v1_shape=(3000, 5000), example=(16384, 65536)):
     """Phase 26: ReliefF's weight rule at large-n, on the v1 tier and on
     the 150-state mixed input (``refs``: phases 9 and 8's ReliefF scores
-    of the first two); the drop-in surface; the GWAS example.  Launch
-    counts are set to 0 before it and read after it: all four kernels
-    must launch.  Returns (numbers, launches)."""
+    of the first two); the drop-in surface; the GWAS example.  Launches
+    are counted over it: all four kernels must launch.  Returns
+    (numbers, launches)."""
     t0 = time.perf_counter()
-    rc.reset_launch_counts()
+    before = launch_counts()
     cont = ("relief_pass1_cont", "relief_pass2_cont", "relieff_weights")
     mixed = ("relief_pass1_mixed", "relief_pass2_mixed", "relieff_weights")
     res = {"large-n": relieff_rule_fits(
@@ -3027,7 +3042,7 @@ def completeness_phase(dev, X_n, y_n, X_mf, y_mf, large_n_scores, refs,
         X_mf, y_mf, mixed)
     backend = "gpu" if dev.type == "cuda" else "cpu"
     res["drop-in_s"] = dropin_phase(dev, X_n, y_n, large_n_scores, backend)
-    launches = dict(rc.launches)
+    launches = launches_since(before)
     for name in KERNELS:
         check(launches[name] > 0, f"{name} launched in phase 26")
     res["example_s"] = example_phase(*example,
@@ -3113,7 +3128,7 @@ def kernel_checks(dev):
         run = n_disc if stride == 1 and n_disc % 4 == 0 else 0
         xi = xp if nb == n else xp[off:off + nb].contiguous()
         k1, k2 = f"relief_pass1_{tag}", f"relief_pass2_{tag}"
-        before = dict(rc.launches)
+        before = launch_counts()
         D = rc.dist_matrix(xp, recip, disc, xi=xi, mixed=mixed)
         D_ref = rc.dist_matrix_ref(xp, recip, disc, xi=xi, mixed=mixed)
         W = torch.rand(nb, n, device=dev) - 0.5
@@ -3128,8 +3143,8 @@ def kernel_checks(dev):
         err[k1] = max(err[k1], d_err)
         err[k2] = max(err[k2], s_err)
         check(torch.equal(s, s_again), f"pass2 {where}: two launches differ")
-        check(rc.launches[k1] == before[k1] + 1, f"{k1} counter")
-        check(rc.launches[k2] == before[k2] + 2, f"{k2} counter")
+        check(_build.launches[k1] == before[k1] + 1, f"{k1} counter")
+        check(_build.launches[k2] == before[k2] + 2, f"{k2} counter")
         ranges = len(rc.pass1_splits(nb, n, p))
         print(f"kernels {where} ({ranges} feature ranges): max |D - ref| "
               f"{d_err:.3e}, max |s - ref| {s_err:.3e} (relative "
@@ -3397,7 +3412,7 @@ def window_phase(dev, windows=WINDOWS):
     t0 = time.perf_counter()
     err = {k: 0.0 for k in WINDOW_KERNELS}
     timing = {k: [] for k in WINDOW_KERNELS}
-    before = dict(rd.launches)
+    before = launch_counts(WINDOW_KERNELS)
     for label, n, w, ti, two, three, many in windows:
         fw = rd.pass1_width(n, 3, w)
         codes, bits, rows = window_data(dev, label, n, max(2 * w, fw),
@@ -3510,7 +3525,7 @@ def window_phase(dev, windows=WINDOWS):
             del prods, ci, got, again, once, ref, eager, epilogue
         del codes, rows
         torch.cuda.empty_cache()
-    moved = {k: rd.launches[k] - before[k] for k in rd.launches}
+    moved = launches_since(before)
     # the kernels run on the card; on the CPU their twins do
     check(dev.type != "cuda" or all(moved.values()),
           f"phase 27: window kernels launched {moved}")
@@ -3609,7 +3624,7 @@ def relieff_kernel_phase(dev, large_n, cases=RELIEFF_CASES, reps=10):
     kernel's launch alone and the sort chain (``library_ms``), beside the
     bound.  Returns the timed rows."""
     t0 = time.perf_counter()
-    before = rc.launches["relieff_weights"]
+    before = _build.launches["relieff_weights"]
     blocks = [("large-n block", large_n, 10)] + [
         (label, relieff_block(dev, kind, t, n, n_real, row0, ncls,
                               seed=28 + i, few=few, n_probs=n_probs), k)
@@ -3654,7 +3669,7 @@ def relieff_kernel_phase(dev, large_n, cases=RELIEFF_CASES, reps=10):
               f"{100 * bound / kernel_ms:.1f}% of it", flush=True)
         del got, ops, args, D
         torch.cuda.empty_cache()
-    moved = rc.launches["relieff_weights"] - before
+    moved = _build.launches["relieff_weights"] - before
     check(dev.type != "cuda" or moved > 0,
           f"phase 28: relieff_weights launched {moved} times")
     print(f"relieff kernel: phase {time.perf_counter() - t0:.2f} s on {SMI}",
@@ -3739,12 +3754,12 @@ def threshold_held(W, args, algo, star, ulps=THRESHOLD_ULPS):
     float64 one, the pairs between the two change sides.  Returns (pairs
     that changed sides of the chain's threshold, rows that hold them,
     pairs off the model's side, the criteria W fails)."""
-    want = relief_mod.chain_weights(*args, None, algo=algo, use_star=star,
-                                    k=0)
+    D, yi, vi, iid, y, valid, n_real = args
+    want = relief_mod.chain_rule(y, valid, n_real, None, algo=algo,
+                                 use_star=star, k=0)(D, yi, vi, iid)
     if W.dtype != torch.float32 or W.shape != want.shape:
         return 0, 0, 0, [f"W is float32 of shape {tuple(want.shape)}"]
     faults = []
-    D, _, _, _, _, _, n_real = args
     Dm, thr, vmask, hit = chain_threshold(args, algo)
     moved = near_of(want, vmask, hit)
     if not torch.equal(moved, vmask & (Dm < thr[:, None])):
@@ -3796,8 +3811,7 @@ def threshold_kernel_phase(dev, large_n, reps=10):
     the chain (``library_ms``, mean of 3), beside each launch's bound in
     bytes.  Returns kernel name -> timed rows."""
     t0 = time.perf_counter()
-    before = {k: rc.launches[k] for k in ("threshold_stats",
-                                          "threshold_weights")}
+    before = launch_counts(("threshold_stats", "threshold_weights"))
     D32, yi, vi, iid, y, valid, _ = large_n
     n_real = valid.sum()
     rows = {k: [] for k in before}
@@ -3858,7 +3872,7 @@ def threshold_kernel_phase(dev, large_n, reps=10):
             torch.cuda.empty_cache()
         del D, args
     for kernel, k0 in before.items():
-        moved = rc.launches[kernel] - k0
+        moved = _build.launches[kernel] - k0
         check(dev.type != "cuda" or moved > 0,
               f"phase 29: {kernel} launched {moved} times")
     print(f"threshold kernels: phase {time.perf_counter() - t0:.2f} s on "
@@ -3921,7 +3935,7 @@ def main():
     window_err, window_timing = window_phase(dev)
 
     # 4-6. the main path
-    rc.reset_launch_counts()
+    main0 = launch_counts()
     cont = ("relief_pass1_cont", "relief_pass2_cont")
     X_n, y_n = make_classification(n_samples=50000, n_features=100,
                                    n_informative=10, random_state=0)
@@ -3958,8 +3972,8 @@ def main():
     # the mixed phase's reference ran the MIXED kernels and the threshold
     # rule's, mixed-xl's the continuous ones: not the main path (phase 4's
     # plain engine launches nothing)
-    main_launches = {k: rc.launches[k] - ref_mixed[k] - ref_xl[k]
-                     for k in rc.launches}
+    main_launches = {k: v - ref_mixed[k] - ref_xl[k]
+                     for k, v in launches_since(main0).items()}
     for name in (*KERNELS, "threshold_stats", "threshold_weights"):
         check(main_launches[name] > 0, f"{name} launched on the main path")
     check(main_launches["threshold_stats"]
@@ -4061,7 +4075,7 @@ def main():
     del X
 
     # 9. SURF and ReliefF on continuous data
-    rc.reset_launch_counts()
+    phase9 = launch_counts()
     X, y = make_classification(n_samples=10000, n_features=100,
                                n_informative=10, random_state=4)
     for make, params in ((SURF, {}), (SURF, {"use_star": True}),
@@ -4074,9 +4088,11 @@ def main():
                              make=ReliefF, n_neighbors=10)
     oracle_phase_surf_relieff()
     for name in cont:
-        check(rc.launches[name] > 0, f"{name} launched by SURF/ReliefF")
+        check(launches_since(phase9)[name] > 0,
+              f"{name} launched by SURF/ReliefF")
     # ReliefF's kernel on the main path: these fits, their references plain
-    main_launches["relieff_weights"] = rc.launches["relieff_weights"]
+    main_launches["relieff_weights"] = launches_since(phase9)[
+        "relieff_weights"]
     check(main_launches["relieff_weights"] > 0,
           "relieff_weights launched on the main path")
 

@@ -9,8 +9,10 @@ compiled.  Its file name carries a hash of the sources (headers included)
 and flags, so an edited kernel is rebuilt and a stale library is never
 loaded.  ``ptxas``'s report of each kernel's registers and spills is
 kept beside it (:func:`ptxas_report`).  Each entry point launches on the
-stream it is given and returns ``cudaGetLastError()``; :func:`check`
-turns a nonzero code into an exception.  With the package's logger at
+stream it is given and returns ``cudaGetLastError()``; every launch goes
+through :func:`launch`, which passes the stream, turns a nonzero code
+into an exception (:func:`check`) and counts the launch in ``launches``
+(counters ``launches.<kernel>``).  With the package's logger at
 INFO the load logs one ``build.kernels`` record: its seconds, the
 kernels compiled (0 when the library was already built) and the entry
 points loaded, also counted as ``kernels_compiled`` and
@@ -29,7 +31,9 @@ import tempfile
 import time
 from pathlib import Path
 
-from .utils.logging import count, log_seconds
+import torch
+
+from .utils.logging import count, counters, log_seconds
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -72,6 +76,15 @@ _SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
+
+# launches of each kernel entry (its name less ``fs_``) since the last reset
+launches = {name[3:]: 0 for name in _SIGNATURES}
+counters("launches", launches)
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
 
 
 def _sources() -> list[Path]:
@@ -200,3 +213,15 @@ def check(err: int, kernel: str) -> None:
         msg = load().fs_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
                            f"({msg})")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch the entry ``fs_<name>`` with ``args`` and the current stream
+    of the CUDA ``device``, raise if it returns a CUDA error, and count it
+    in ``launches[name]``."""
+    lib = load()
+    with torch.cuda.device(device):
+        err = getattr(lib, f"fs_{name}")(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, name)
+    launches[name] += 1

@@ -20,10 +20,11 @@ engine makes two passes over the data with weights in between:
 The passes live in ``relief_cuda.py`` (any data), ``relief_discrete.py``
 (all-discrete data) and ``relief_hybrid.py`` (mixed data, both halves);
 this module holds the rules, which are plain tensor code on D's device,
-and the routing between the engines.  On the fused engine on the card
-W comes from hand-written kernels instead: ReliefF's from one launch
+and the routing between the engines.  The fused engine takes its rule
+from :func:`weight_rule`, once a fit: on the card W comes from
+hand-written kernels instead, ReliefF's from one launch
 (:func:`relieff_weights`, ``csrc/relieff_select.cu``), equal to its
-rule's bit for bit; MultiSURF's and SURF's from two
+rule's bit for bit, MultiSURF's and SURF's from two
 (:func:`threshold_weights`, ``csrc/threshold_rule.cu``), equal to theirs
 but where a pair lies within an ulp or so of the threshold.  Every rule
 returns a list of ``(boolean mask (T, n), per-row coefficient (T,))``
@@ -46,6 +47,7 @@ import os
 import numpy as np
 import torch
 
+from .. import _build
 from ..utils.logging import count, span
 
 _INF = 3.0e38
@@ -259,21 +261,16 @@ def _relieff_select_operands(D, yi, vi, iid, labels, k, class_probs):
 
 def relieff_weights(D, yi, vi, iid, y_flat, valid_flat, k, class_probs,
                     labels=None):
-    """ReliefF's pair weights W (T, n) float32 of one focal block:
-    ``_sum_rules(_rules_relieff(...))``, bit for bit.
+    """ReliefF's pair weights W (T, n) float32 of one focal block on the
+    card: ``_sum_rules(_rules_relieff(...))``, bit for bit.
 
-    On a CPU tensor that chain is what runs.  On a CUDA tensor one launch
-    of ``csrc/relieff_select.cu`` selects each label's k nearest members
-    of every row and writes W from D (no sort; 8 B a pair of device
-    memory, D and W), after the row coefficients of
-    :func:`_relieff_select_operands` in PyTorch; anything else raises.
-    ``relief_cuda.launches["relieff_weights"]`` counts the launches.
-    ``labels`` is :func:`relieff_labels` of (y_flat, valid_flat), made
-    here when not given.  Labels are >= -1 (padding), as the engines stage
-    them."""
-    if D.device.type == "cpu":
-        return _sum_rules(_rules_relieff(D, yi, vi, iid, y_flat, valid_flat,
-                                         k, class_probs))
+    One launch of ``csrc/relieff_select.cu`` selects each label's k
+    nearest members of every row and writes W from a float32 CUDA D (no
+    sort; 8 B a pair of device memory, D and W), after the row
+    coefficients of :func:`_relieff_select_operands` in PyTorch; anything
+    else raises.  ``labels`` is :func:`relieff_labels` of (y_flat,
+    valid_flat), made here when not given.  Labels are >= -1 (padding),
+    as the engines stage them."""
     T, n = _check_rule_operands("relieff_weights", (torch.float32,), D, yi,
                                 y_flat)
     if k < 1:
@@ -307,44 +304,32 @@ def _check_rule_operands(name, dtypes, D, yi, y_flat):
 def _relieff_launch(D, lab, y32, iid, vi, vals, k):
     """W from one launch of ``csrc/relieff_select.cu`` on the operands of
     :func:`_relieff_select_operands` (iid int64, vi float32)."""
-    from .. import _build
-    from .relief_cuda import launches
     T, n = D.shape
     W = torch.empty_like(D)
-    with torch.cuda.device(D.device):
-        err = _build.load().fs_relieff_weights(
-            D.data_ptr(), lab.data_ptr(), y32.data_ptr(), iid.data_ptr(),
-            vi.data_ptr(), vals.data_ptr(), W.data_ptr(), T, n,
-            vals.shape[1] - 1, int(k),
-            torch.cuda.current_stream(D.device).cuda_stream)
-    _build.check(err, "relieff_weights")
-    launches["relieff_weights"] += 1
+    _build.launch("relieff_weights", D.device, D.data_ptr(), lab.data_ptr(),
+                  y32.data_ptr(), iid.data_ptr(), vi.data_ptr(),
+                  vals.data_ptr(), W.data_ptr(), T, n, vals.shape[1] - 1,
+                  int(k))
     return W
 
 
 def threshold_weights(D, yi, vi, iid, y_flat, valid_flat, n_real, *, algo,
                       use_star, labels=None):
     """MultiSURF's or SURF's (``algo``) pair weights W (T, n) float32 of one
-    focal block: ``_sum_rules(pair_weight_rules(...))``.
+    focal block on the card: ``_sum_rules(pair_weight_rules(...))``.
 
-    On a CPU tensor that chain is what runs.  On a CUDA tensor of float32
-    or float64 two launches of ``csrc/threshold_rule.cu`` write W from D
-    (12 B a pair of device memory; D and W are all a block holds): the
-    row statistics and thresholds, inside the span ``weight_rules.stats``
-    as in the chain, then the weights; anything else raises.  The row
-    shift and 1 / (n_real - 1) are the chain's own tensors.  The kernels
-    sum in float64, so a pair within an ulp or so of the chain's threshold
-    may take the other side of it; every other W equals the chain's bit
-    for bit.  ``relief_cuda.launches["threshold_stats"]`` and
-    ``["threshold_weights"]`` count the launches.  ``labels`` is
-    :func:`sample_labels` of (y_flat, valid_flat), made here when not
-    given."""
+    Two launches of ``csrc/threshold_rule.cu`` write W from a float32 or
+    float64 CUDA D (12 B a pair of device memory; D and W are all a block
+    holds): the row statistics and thresholds, inside the span
+    ``weight_rules.stats`` as in the chain, then the weights; anything
+    else raises.  The row shift and 1 / (n_real - 1) are the chain's own
+    tensors.  The kernels sum in float64, so a pair within an ulp or so of
+    the chain's threshold may take the other side of it; every other W
+    equals the chain's bit for bit.  ``labels`` is :func:`sample_labels`
+    of (y_flat, valid_flat), made here when not given."""
     if algo not in ("multisurf", "surf"):
         raise ValueError(f"threshold_weights takes 'multisurf' or 'surf', "
                          f"got {algo!r}")
-    if D.device.type == "cpu":
-        return chain_weights(D, yi, vi, iid, y_flat, valid_flat, n_real,
-                             None, algo=algo, use_star=use_star, k=0)
     _check_rule_operands("threshold_weights", (torch.float32, torch.float64),
                          D, yi, y_flat)
     with span("weight_rules.stats", device=D.device):
@@ -379,37 +364,26 @@ def _threshold_stats(D, ops, shift, denom, multisurf, star):
     """(thr (T,) of D's dtype, coef (T, 4) float32) from one launch of
     ``csrc/threshold_rule.cu``'s statistics on the operands of
     :func:`_threshold_operands`."""
-    from .. import _build
-    from .relief_cuda import launches
     T, n = D.shape
     thr = torch.empty_like(shift)
     coef = torch.empty((T, 4), dtype=torch.float32, device=D.device)
-    with torch.cuda.device(D.device):
-        err = _build.load().fs_threshold_stats(
-            D.data_ptr(), int(D.dtype == torch.float64),
-            *(t.data_ptr() for t in ops), shift.data_ptr(), denom.data_ptr(),
-            thr.data_ptr(), coef.data_ptr(), T, n, int(multisurf), int(star),
-            torch.cuda.current_stream(D.device).cuda_stream)
-    _build.check(err, "threshold_stats")
-    launches["threshold_stats"] += 1
+    _build.launch("threshold_stats", D.device, D.data_ptr(),
+                  int(D.dtype == torch.float64),
+                  *(t.data_ptr() for t in ops), shift.data_ptr(),
+                  denom.data_ptr(), thr.data_ptr(), coef.data_ptr(), T, n,
+                  int(multisurf), int(star))
     return thr, coef
 
 
 def _threshold_launch(D, ops, shift, thr, coef):
     """W (T, n) float32 from one launch of ``csrc/threshold_rule.cu``'s
     weights on the operands of :func:`_threshold_stats` and its result."""
-    from .. import _build
-    from .relief_cuda import launches
     T, n = D.shape
     W = torch.empty(D.shape, dtype=torch.float32, device=D.device)
-    with torch.cuda.device(D.device):
-        err = _build.load().fs_threshold_weights(
-            D.data_ptr(), int(D.dtype == torch.float64),
-            *(t.data_ptr() for t in ops), shift.data_ptr(), thr.data_ptr(),
-            coef.data_ptr(), W.data_ptr(), T, n,
-            torch.cuda.current_stream(D.device).cuda_stream)
-    _build.check(err, "threshold_weights")
-    launches["threshold_weights"] += 1
+    _build.launch("threshold_weights", D.device, D.data_ptr(),
+                  int(D.dtype == torch.float64),
+                  *(t.data_ptr() for t in ops), shift.data_ptr(),
+                  thr.data_ptr(), coef.data_ptr(), W.data_ptr(), T, n)
     return W
 
 
@@ -433,15 +407,46 @@ def pair_weight_rules(D, yi, vi, iid, y_flat, valid_flat, n_real,
     raise ValueError(f"unknown Relief algorithm {algo!r}")
 
 
-def chain_weights(D, yi, vi, iid, y_flat, valid_flat, n_real, class_probs,
-                  *, algo, use_star, k):
-    """W (T, n) float32 of one focal block by the rules of
-    :func:`pair_weight_rules` summed in PyTorch, on any device: the rule
+def chain_rule(y_flat, valid_flat, n_real, class_probs, *, algo, use_star,
+               k):
+    """The weight rule of one fused-engine fit as the chain of PyTorch
+    operations, on any device: ``W = rule(D, yi, vi, iid)``, (T, n)
+    float32, the rules of :func:`pair_weight_rules` summed.  It is what
     the kernels of :func:`relieff_weights` and :func:`threshold_weights`
-    replace on the card."""
-    return _sum_rules(pair_weight_rules(
-        D, yi, vi, iid, y_flat, valid_flat, n_real, class_probs, algo=algo,
-        use_star=use_star, k=k))
+    replace on the card, and their reference there.  ReliefF's rule ranks
+    D in float32, as its kernel does: p >> n's float64 D is rounded."""
+    def rule(D, yi, vi, iid):
+        if algo == "relieff":
+            D = D.to(torch.float32)
+        return _sum_rules(pair_weight_rules(
+            D, yi, vi, iid, y_flat, valid_flat, n_real, class_probs,
+            algo=algo, use_star=use_star, k=k))
+    return rule
+
+
+def weight_rule(y_flat, valid_flat, n_real, class_probs, *, algo, use_star,
+                k):
+    """The fused engine's weight rule of one fit, ``W = rule(D, yi, vi,
+    iid)`` (T, n) float32 of a focal block's distance rows D against all
+    samples (labels ``y_flat``, validity ``valid_flat``, both on D's
+    device).
+
+    On the CPU it is :func:`chain_rule`.  On the card it is the rule
+    kernels, with their per-fit labels made here once: ReliefF's one
+    launch (:func:`relieff_weights`) on D rounded to float32, MultiSURF's
+    and SURF's two (:func:`threshold_weights`) on D as pass 1 gives it."""
+    if y_flat.device.type == "cpu":
+        return chain_rule(y_flat, valid_flat, n_real, class_probs, algo=algo,
+                          use_star=use_star, k=k)
+    if algo == "relieff":
+        labels = relieff_labels(y_flat, valid_flat)
+        return lambda D, yi, vi, iid: relieff_weights(
+            D.to(torch.float32), yi, vi, iid, y_flat, valid_flat, k,
+            class_probs, labels)
+    labels = sample_labels(y_flat, valid_flat)
+    return lambda D, yi, vi, iid: threshold_weights(
+        D, yi, vi, iid, y_flat, valid_flat, n_real, algo=algo,
+        use_star=use_star, labels=labels)
 
 
 def relief_engine_core(x_f, yv_f, valid_f, row0, x_a, yv_a, valid_a,
@@ -453,13 +458,13 @@ def relief_engine_core(x_f, yv_f, valid_f, row0, x_a, yv_a, valid_a,
     ``row0`` is the global row id of x_f's first row: the sharded layer
     passes each shard's contiguous focal rows with their offset, a single
     device all rows with 0.  Every block of ``nb`` focal rows runs pass 1
-    against all rows, the weight rules with its global row ids, then pass
+    against all rows, the weight rule with its global row ids, then pass
     2; block scores are added in block order.  The first ``n_disc``
     columns (a multiple of 4) are the discrete ones.  ``pass1`` and
     ``pass2`` default to the kernel wrappers of ``relief_cuda.py``
     (:func:`~.relief_cuda.dist_matrix`, :func:`~.relief_cuda.accumulate`);
-    ``rule``, called as :func:`chain_weights`, replaces the weight rule
-    (by default :func:`relieff_weights` or :func:`threshold_weights`).
+    ``rule`` makes the fit's weight rule, called as :func:`weight_rule`
+    (the default; :func:`chain_rule` runs the chain on any device).
     Counterpart of JAX's ``relief_engine_core``.
     """
     if pass1 is None or pass2 is None:
@@ -468,8 +473,8 @@ def relief_engine_core(x_f, yv_f, valid_f, row0, x_a, yv_a, valid_a,
     mixed = n_disc > 0
     dev = x_a.device
     scores = torch.zeros(x_a.shape[1], dtype=torch.float32, device=dev)
-    labels = (relieff_labels if algo == "relieff" else sample_labels)(
-        yv_a, valid_a)
+    rule = (rule or weight_rule)(yv_a, valid_a, n_real, class_probs,
+                                 algo=algo, use_star=use_star, k=k)
     for b0 in range(0, x_f.shape[0], nb):
         count("focal_blocks")
         xi = x_f[b0:b0 + nb]
@@ -477,20 +482,7 @@ def relief_engine_core(x_f, yv_f, valid_f, row0, x_a, yv_a, valid_a,
         with span("fused.pass1", device=dev):
             D = pass1(x_a, recip, disc, xi=xi, mixed=mixed)
         with span("weight_rules", device=dev):
-            yi, vi = yv_f[b0:b0 + nb], valid_f[b0:b0 + nb]
-            if algo == "relieff":
-                # the kernel takes float32 D: p >> n's float64 D rounded
-                D = D.to(torch.float32)
-            if rule is not None:
-                W = rule(D, yi, vi, iid, yv_a, valid_a, n_real, class_probs,
-                         algo=algo, use_star=use_star, k=k)
-            elif algo == "relieff":
-                W = relieff_weights(D, yi, vi, iid, yv_a, valid_a, k,
-                                    class_probs, labels)
-            else:
-                W = threshold_weights(
-                    D, yi, vi, iid, yv_a, valid_a, n_real, algo=algo,
-                    use_star=use_star, labels=labels)
+            W = rule(D, yv_f[b0:b0 + nb], valid_f[b0:b0 + nb], iid)
             del D
         with span("fused.pass2", device=dev):
             scores += pass2(x_a, W, recip, disc, xi=xi, mixed=mixed,

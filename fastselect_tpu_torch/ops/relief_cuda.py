@@ -16,16 +16,16 @@ for every float4 group; the fused engine orders its columns by kind
 block are each of one kind.  The kernels take rows that are 16-byte
 aligned (p a multiple of 4, and n too in pass 2), so every engine pads
 features to ``TILE_FEATURES``.  Between the passes the pair weights W
-come from D by one rule kernel a rule on the card
-(``relief.relieff_weights``, ``relief.threshold_weights``) and by the
-rules of ``relief.pair_weight_rules`` on the CPU.  Where p >> n pass 1
-sums feature ranges apart, in float64, and D is float64.
+come from D by the fit's weight rule (``relief.weight_rule``): the rule
+kernels on the card, the rules of ``relief.pair_weight_rules`` on the
+CPU.  Where p >> n pass 1 sums feature ranges apart, in float64, and D
+is float64.
 
 Each wrapper (:func:`dist_matrix`, :func:`accumulate`) launches its kernel
 for a CUDA tensor, or raises: it never falls back.  For a CPU tensor it
 runs its plain PyTorch twin (:func:`dist_matrix_ref`,
 :func:`accumulate_ref`), which is also the reference the kernels are held
-to on the card.  ``launches`` counts the kernel launches by name.
+to on the card.  ``_build.launches`` counts the kernel launches by name.
 
 Focal rows stream in blocks of ``nb`` rows so that only (nb, n) distance
 and weight blocks exist at a time; ``nb`` is sized from the device's free
@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..utils.logging import count, counters, phase, span
+from ..utils.logging import count, phase, span
 from .relief import relief_engine_core
 
 # Samples pad to 64 rows, which meets the hybrid engine's int8 GEMMs (more
@@ -73,25 +73,21 @@ _PASS2_STAGE = 64
 _PASS2_MIN_SPAN = 1024
 _PASS2_TARGET_BLOCKS = 1056
 
-# Bytes per (focal row, sample) pair of a focal block for MultiSURF and
-# SURF.  On the card their rule (relief.threshold_weights) holds W beside
-# D and nothing else a pair, 8 B (12 where p >> n gives a float64 D);
-# the chain it replaced, still the rule on the CPU and of the mesh and
-# hybrid layouts, held about six (nb, n_pad) float32 and bool temporaries
-# besides, which this budget was sized for.  It stays at 32 for its block
-# plan: at large-n (50,048 samples) it gives 2 blocks of 25,024 rows, and
-# the blocks set the order of the float32 score sums, so it also fixes
-# the scores' bits.
-_BYTES_PER_PAIR = 32
-# ReliefF's rule on the card (relief.relieff_weights) holds W beside D and
-# nothing else a pair: a large-n fit peaked at 1.1377 GiB, 8.3 B a pair of
-# its 2,944 x 50,048-pair blocks with X and the scores (the benchmark's
-# large-n.relieff on an NVIDIA H100 80GB HBM3 at 700 W), where the sort
-# chain it replaced peaked at 46.3 B.  The constant stays at 64 for its
-# block plan: with 50,048's divisors it gives those 2,944-row blocks (17 a
-# fit), and the blocks set the order of the float32 score sums, so it also
-# fixes the scores' bits.
-_RELIEFF_BYTES_PER_PAIR = 64
+# Block-size rules: the nominal bytes a (focal row, sample) pair of a
+# focal block by which :func:`focal_block_rows` sizes the blocks of a
+# MultiSURF or SURF fit and of a ReliefF fit; not what a pair holds.  On
+# the card the fused engine's rule kernels, the mesh's fused sample shard
+# included, hold W beside D and nothing else a pair, 8 B (12 where p >> n
+# gives a float64 D; a ReliefF fit at large-n peaked at 8.3 B a pair, X
+# and the scores included).  The chain of PyTorch rules, which the CPU
+# and the discrete and hybrid engines keep (the ring, feature-shard and
+# discrete mesh layouts among them), holds about six (nb, n_pad) float32
+# and bool temporaries besides.  The blocks set the order of the float32
+# score sums, so these rules fix the scores' bits: at large-n (50,048
+# samples) they give 2 MultiSURF blocks of 25,024 rows and 17 ReliefF
+# blocks of 2,944 rows.
+_THRESHOLD_BLOCK_RULE = 32
+_RELIEFF_BLOCK_RULE = 64
 # Share of the device's free memory a focal block may take.
 _FREE_MEM_FRACTION = 0.8
 # Focal-block budget on the CPU, where the pair arrays live in host memory.
@@ -99,17 +95,6 @@ _CPU_BLOCK_BYTES = 1 << 30
 # Elements of the (features, rows, samples) diff temporaries of the plain
 # versions.
 _REF_CHUNK_ELEMS = 1 << 26
-
-launches = {"relief_pass1_cont": 0, "relief_pass1_mixed": 0,
-            "relief_pass2_cont": 0, "relief_pass2_mixed": 0,
-            "relieff_weights": 0, "threshold_stats": 0,
-            "threshold_weights": 0}
-counters("launches", launches)
-
-
-def reset_launch_counts() -> None:
-    for name in launches:
-        launches[name] = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -301,25 +286,16 @@ def dist_matrix(xp, recip, disc, xi=None, *, mixed):
     count("pass1_ranges", len(splits))
     if xp.device.type == "cpu":
         return dist_matrix_ref(xp, recip, disc, xi, mixed=mixed)
-    lib = _build.load()
     dtype = dist_dtype(nb, n, p)
     D = torch.empty((nb, n), dtype=dtype, device=xp.device)
     part = (torch.empty((len(splits), nb, n), dtype=dtype,
                         device=xp.device) if len(splits) > 1 else None)
-    args = (D.data_ptr(), 0 if part is None else part.data_ptr(), nb, n, p,
-            splits[0][1], len(splits),
-            torch.cuda.current_stream(xp.device).cuda_stream)
-    with torch.cuda.device(xp.device):
-        if mixed:
-            err = lib.fs_relief_pass1_mixed(
-                xi.data_ptr(), xp.data_ptr(), recip.data_ptr(),
-                disc.data_ptr(), *args)
-        else:
-            err = lib.fs_relief_pass1_cont(
-                xi.data_ptr(), xp.data_ptr(), recip.data_ptr(), *args)
-    name = "relief_pass1_mixed" if mixed else "relief_pass1_cont"
-    _build.check(err, name)
-    launches[name] += 1
+    _build.launch(
+        "relief_pass1_mixed" if mixed else "relief_pass1_cont", xp.device,
+        xi.data_ptr(), xp.data_ptr(), recip.data_ptr(),
+        *((disc.data_ptr(),) if mixed else ()), D.data_ptr(),
+        0 if part is None else part.data_ptr(), nb, n, p, splits[0][1],
+        len(splits))
     return D
 
 
@@ -342,25 +318,14 @@ def accumulate(xp, W, recip, disc, xi=None, *, mixed, n_disc=0):
                          f"for the continuous kernel, got {n_disc}")
     if xp.device.type == "cpu":
         return accumulate_ref(xp, W, recip, disc, xi, mixed=mixed)
-    lib = _build.load()
     plan = pass2_plan(nb, n, p, n_disc)
     partial = torch.empty((_cdiv(nb, plan.focal_rows) * plan.spans, p),
                           dtype=torch.float32, device=xp.device)
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
-    with torch.cuda.device(xp.device):
-        if mixed:
-            err = lib.fs_relief_pass2_mixed(
-                xi.data_ptr(), xp.data_ptr(), W.data_ptr(), recip.data_ptr(),
-                disc.data_ptr(), partial.data_ptr(), nb, n, p, n_disc,
-                plan.groups, plan.rows, plan.span, stream)
-        else:
-            err = lib.fs_relief_pass2_cont(
-                xi.data_ptr(), xp.data_ptr(), W.data_ptr(), recip.data_ptr(),
-                partial.data_ptr(), nb, n, p, plan.groups, plan.rows,
-                plan.span, stream)
-    name = "relief_pass2_mixed" if mixed else "relief_pass2_cont"
-    _build.check(err, name)
-    launches[name] += 1
+    _build.launch(
+        "relief_pass2_mixed" if mixed else "relief_pass2_cont", xp.device,
+        xi.data_ptr(), xp.data_ptr(), W.data_ptr(), recip.data_ptr(),
+        *((disc.data_ptr(),) if mixed else ()), partial.data_ptr(), nb, n, p,
+        *((n_disc,) if mixed else ()), plan.groups, plan.rows, plan.span)
     return partial.sum(dim=0)
 
 
@@ -370,24 +335,6 @@ def accumulate(xp, W, recip, disc, xi=None, *, mixed, n_disc=0):
 
 def _round_up(v: int, m: int) -> int:
     return ((v + m - 1) // m) * m
-
-
-def _focal_block_rows(n_pad: int, ti: int, budget_bytes: int,
-                      bytes_per_pair: int = _BYTES_PER_PAIR,
-                      n_focal: int | None = None) -> int:
-    """Focal block rows nb: the largest multiple of ti that divides the
-    focal rows ``n_focal`` (default n_pad; a multiple of ti) and whose
-    pair arrays against all n_pad samples fit ``budget_bytes``.
-
-    The JAX engine's rule (``relief_pallas._focal_block_rows``) with the
-    budget taken from the device.  That rule minimises padded work first,
-    so it only ever picks block sizes that divide the focal axis."""
-    n_focal = n_pad if n_focal is None else n_focal
-    if n_focal * n_pad * bytes_per_pair <= budget_bytes:
-        return n_focal
-    m = n_focal // ti
-    cap = max(1, budget_bytes // (bytes_per_pair * n_pad * ti))
-    return ti * max(d for d in range(1, min(cap, m) + 1) if m % d == 0)
 
 
 def _block_budget_bytes(device: torch.device, sharers: int = 1) -> int:
@@ -401,6 +348,32 @@ def _block_budget_bytes(device: torch.device, sharers: int = 1) -> int:
     cached = (torch.cuda.memory_reserved(device)
               - torch.cuda.memory_allocated(device))
     return int((free + cached) * _FREE_MEM_FRACTION) // sharers
+
+
+def focal_block_rows(n_pad: int, device: torch.device, algo: str, *,
+                     n_focal: int | None = None, sharers: int = 1,
+                     extra_bytes: int = 0) -> int:
+    """Focal block rows nb of an ``algo`` fit of n_pad samples on
+    ``device``: the largest multiple of ``TILE_ROWS`` that divides the
+    focal rows ``n_focal`` (default n_pad; a multiple of TILE_ROWS) and
+    whose pairs against all n_pad samples fit the block budget of the
+    ``sharers`` processes on the device (:func:`_block_budget_bytes`) at
+    the algorithm's block-size rule plus ``extra_bytes`` a pair.
+
+    The JAX engine's rule (``relief_pallas._focal_block_rows``) with the
+    budget taken from the device.  That rule minimises padded work first,
+    so it only ever picks block sizes that divide the focal axis.  The
+    fused engine (:func:`block_plan`), the hybrid engine's blocked path
+    and the mesh's fused sample shard all size their blocks here."""
+    per_pair = extra_bytes + (_RELIEFF_BLOCK_RULE if algo == "relieff"
+                              else _THRESHOLD_BLOCK_RULE)
+    budget = _block_budget_bytes(device, sharers)
+    n_focal = n_pad if n_focal is None else n_focal
+    if n_focal * n_pad * per_pair <= budget:
+        return n_focal
+    m = n_focal // TILE_ROWS
+    cap = max(1, budget // (per_pair * n_pad * TILE_ROWS))
+    return TILE_ROWS * max(d for d in range(1, min(cap, m) + 1) if m % d == 0)
 
 
 class BlockPlan(NamedTuple):
@@ -424,11 +397,7 @@ def block_plan(n: int, p: int, device: torch.device,
     continuous run each pad to ``TILE_FEATURES`` (:func:`feature_positions`)."""
     n_pad = _round_up(max(n, 1), TILE_ROWS)
     p_pad = padded_features(p, n_disc)
-    per_pair = (_RELIEFF_BYTES_PER_PAIR if algo == "relieff"
-                else _BYTES_PER_PAIR)
-    nb = _focal_block_rows(n_pad, TILE_ROWS, _block_budget_bytes(device),
-                           per_pair)
-    return BlockPlan(n_pad, p_pad, nb)
+    return BlockPlan(n_pad, p_pad, focal_block_rows(n_pad, device, algo))
 
 
 # ---------------------------------------------------------------------------

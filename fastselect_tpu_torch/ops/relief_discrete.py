@@ -21,7 +21,7 @@ more than 16 rows and a contraction length and output width that are
 multiples of 8; the engine pads to those rules (:func:`_gemm_size`,
 :func:`_segment_operand`) and never falls back to a float product: a
 shape the GEMM refuses raises.  ``gemm_ops`` counts 2*m*k*n for every
-product, as ``relief_cuda.launches`` counts kernel launches.
+product, as ``_build.launches`` counts kernel launches.
 
 Three tiers, chosen as in the JAX package and by the same gates:
 
@@ -47,7 +47,7 @@ row's state into the window's score partials, with no float temporary
 of the products.  On a CUDA tensor each wrapper launches its kernel or
 raises; on a CPU tensor it runs its plain twin (:func:`window_onehot_ref`,
 :func:`window_partials_ref`), which is also the kernels' referee on the
-card.  ``launches`` counts the kernels' launches by name.
+card.  ``_build.launches`` counts the kernels' launches by name.
 
 Codes past the sort budget (GWAS scale: 2.2 n p bytes over
 ``_DEVICE_SORT_BUDGET``, JAX's share of its 16 GiB chip scaled to the
@@ -72,7 +72,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..utils import staging
-from ..utils.logging import count, counters, phase, span
+from ..utils.logging import count, phase, span
 from ..utils.preprocessing import MAX_STATES, encode_columns
 from .relief import pair_weight_rules
 
@@ -85,19 +85,11 @@ _GEMM_ALIGN = 8
 
 # 2*m*k*n of every int8 product since the last reset
 gemm_ops = 0
-# launches of the window kernels since the last reset
-launches = {"window_onehot": 0, "window_partials": 0}
-counters("launches", launches)
 
 
 def reset_gemm_ops() -> None:
     global gemm_ops
     gemm_ops = 0
-
-
-def reset_launch_counts() -> None:
-    for name in launches:
-        launches[name] = 0
 
 
 def _round_up(v: int, m: int) -> int:
@@ -440,15 +432,10 @@ def window_onehot(codes_a, off, w, n_states, bits=0, rows=None, *,
         return hot if out is None else out.copy_(hot)
     if out is None:
         out = torch.empty(shape, dtype=_DOT_DTYPE, device=codes_a.device)
-    lib = _build.load()
-    with torch.cuda.device(codes_a.device):
-        err = lib.fs_window_onehot(
-            codes_a.data_ptr(), codes_a.stride(0),
-            None if rows is None else rows.data_ptr(), n_rows, off, w, wp,
-            bits, n_states, out.data_ptr(), out.stride(0), int(transpose),
-            torch.cuda.current_stream(codes_a.device).cuda_stream)
-    _build.check(err, "window_onehot")
-    launches["window_onehot"] += 1
+    _build.launch("window_onehot", codes_a.device, codes_a.data_ptr(),
+                  codes_a.stride(0), None if rows is None else rows.data_ptr(),
+                  n_rows, off, w, wp, bits, n_states, out.data_ptr(),
+                  out.stride(0), int(transpose))
     return out
 
 
@@ -575,16 +562,12 @@ class WindowPartials:
         table, partial, spans, span = launch
         if out is None:
             out = torch.empty(w, dtype=torch.float32, device=ci.device)
-        lib = _build.load()
-        with torch.cuda.device(ci.device):
-            err = lib.fs_window_partials(
-                table.data_ptr(), len(addrs), len(self.n_products),
-                int(self.exact), ci.data_ptr(), ci.stride(0), off, self.bits,
-                ci.shape[0], w, wp, self.n_states, self.total_w.data_ptr(),
-                partial.data_ptr(), spans, span, out.data_ptr(),
-                torch.cuda.current_stream(ci.device).cuda_stream)
-        _build.check(err, "window_partials")
-        launches["window_partials"] += 1
+        _build.launch("window_partials", ci.device, table.data_ptr(),
+                      len(addrs), len(self.n_products), int(self.exact),
+                      ci.data_ptr(), ci.stride(0), off, self.bits,
+                      ci.shape[0], w, wp, self.n_states,
+                      self.total_w.data_ptr(), partial.data_ptr(), spans,
+                      span, out.data_ptr())
         return out
 
 

@@ -68,14 +68,8 @@ def hybrid_plan(n: int, p_c: int, p_d: int, n_states: int,
     The sample axis pads to the pass-1 tile (64 rows), which also meets
     the int8 GEMM's rules (more than 16 rows, multiples of 8)."""
     n_pad = rc._round_up(max(n, 1), rc.TILE_ROWS)
-    if n <= HYBRID_SQUARE_MAX_N:
-        nb = n_pad
-    else:
-        per_pair = _EXTRA_BYTES_PER_PAIR + (
-            rc._RELIEFF_BYTES_PER_PAIR if algo == "relieff"
-            else rc._BYTES_PER_PAIR)
-        nb = rc._focal_block_rows(n_pad, rc.TILE_ROWS,
-                                  rc._block_budget_bytes(device), per_pair)
+    nb = (n_pad if n <= HYBRID_SQUARE_MAX_N else rc.focal_block_rows(
+        n_pad, device, algo, extra_bytes=_EXTRA_BYTES_PER_PAIR))
     ftd = rd._gemm_size(
         rd._discrete_tile_sizes(n_pad, max(p_d, 1), n_states)[1], device)
     return HybridPlan(n_pad, rc._round_up(max(p_c, 1), rc.TILE_FEATURES),

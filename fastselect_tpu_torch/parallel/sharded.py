@@ -448,11 +448,8 @@ def sharded_relief_scores(
     first = rc.stage_fused(x, y, recip, disc, class_probs, home(mesh),
                            n_pad, p_pad)
     staged = {d: first.to(d) for d in distinct(mesh)}
-    per_pair = (rc._RELIEFF_BYTES_PER_PAIR if algo == "relieff"
-                else rc._BYTES_PER_PAIR)
-    nb = {d: rc._focal_block_rows(n_pad, rc.TILE_ROWS,
-                                  rc._block_budget_bytes(d, sharers(mesh, d)),
-                                  per_pair, n_focal=nf)
+    nb = {d: rc.focal_block_rows(n_pad, d, algo, n_focal=nf,
+                                 sharers=sharers(mesh, d))
           for d in staged}
     parts = []
     for s in mesh.mine:

@@ -12,7 +12,7 @@ import torch
 
 import chip_smoke as cs
 import torch_mp_workers as W
-from fastselect_tpu_torch import MultiSURF
+from fastselect_tpu_torch import MultiSURF, _build
 from fastselect_tpu_torch.models import mdr as mdr_mod
 from fastselect_tpu_torch.ops import relief as relief_mod
 from fastselect_tpu_torch.ops import relief_cuda as rc
@@ -38,15 +38,21 @@ def cpu_card(monkeypatch):
 
         def counted(*a, _orig=orig, _pass=pass_no, **k):
             kind = "mixed" if k["mixed"] else "cont"
-            rc.launches[f"relief_pass{_pass}_{kind}"] += 1
+            _build.launches[f"relief_pass{_pass}_{kind}"] += 1
             return _orig(*a, **k)
         monkeypatch.setattr(rc, name, counted)
-    rule = relief_mod.relieff_weights
+    make = relief_mod.weight_rule
 
-    def counted_rule(*a):
-        rc.launches["relieff_weights"] += 1
-        return rule(*a)
-    monkeypatch.setattr(relief_mod, "relieff_weights", counted_rule)
+    def counted_rule(*a, **k):
+        rule = make(*a, **k)
+        if k["algo"] != "relieff":
+            return rule
+
+        def counted(*b):
+            _build.launches["relieff_weights"] += 1
+            return rule(*b)
+        return counted
+    monkeypatch.setattr(relief_mod, "weight_rule", counted_rule)
 
 
 def test_mesh_large_n_and_mixed_rehearse(cpu_card):

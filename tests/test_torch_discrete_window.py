@@ -27,6 +27,7 @@ from numpy.testing import assert_allclose, assert_array_equal
 import chip_smoke as cs
 import fastselect_tpu.ops.relief_discrete as JD
 import fastselect_tpu_torch.ops.relief_discrete as TD
+from fastselect_tpu_torch import _build
 from fastselect_tpu_torch.ops.relief import pair_weight_rules
 
 torch.set_num_threads(2)
@@ -116,7 +117,7 @@ def test_window_onehot_writes_out_and_counts_no_launch(transpose, rng):
     ``out`` when given, a slice of a wider matrix included; it raises on
     codes of the wrong type."""
     codes = torch.from_numpy(rng.randint(0, 3, (24, 40)).astype(np.int8))
-    before = dict(TD.launches)
+    before = dict(_build.launches)
     want = TD.window_onehot_ref(codes, 8, 16, 3, transpose=transpose)
     assert torch.equal(TD.window_onehot(codes, 8, 16, 3,
                                         transpose=transpose), want)
@@ -126,7 +127,7 @@ def test_window_onehot_writes_out_and_counts_no_launch(transpose, rng):
     assert TD.window_onehot(codes, 8, 16, 3, transpose=transpose,
                             out=view).data_ptr() == view.data_ptr()
     assert torch.equal(view, want) and (big[:, :want.shape[1]] == 7).all()
-    assert TD.launches == before
+    assert _build.launches == before
     with pytest.raises(TypeError, match="int8"):
         TD.window_onehot(codes.to(torch.int16), 0, 8, 3)
     with pytest.raises(ValueError, match="out must be"):
@@ -540,7 +541,7 @@ def test_window_phase_rehearse(monkeypatch):
     monkeypatch.setattr(cs, "cuda_ms", host_ms)
     # pass 1's windows: one tile at the headline's rows, five at gwas's
     monkeypatch.setattr(TD, "_PASS1_ONEHOT_BYTES", 1 << 17)
-    before = dict(TD.launches)
+    before = dict(_build.launches)
     seen = []
 
     def spy(*a, **k):
@@ -562,7 +563,7 @@ def test_window_phase_rehearse(monkeypatch):
         assert row["eager_ms"] > 0 and row["bound_by"] == "bytes"
         assert "class 0, 2 products" in row["shape"]
     assert max(seen) == 61          # ReliefF on v1: hits and 60 classes
-    assert TD.launches == before
+    assert _build.launches == before
 
 
 def test_profile_split_trace_charges_innermost_range(tmp_path):

@@ -190,17 +190,17 @@ def test_split_pass1_is_float64_within_two_roundings_a_diff(monkeypatch,
 
 def test_engine_rounds_split_d_for_relieff(monkeypatch):
     """ReliefF's rule takes float32 D: the split path's float64 D reaches
-    it rounded."""
+    its ranking rounded."""
     rng = np.random.default_rng(4)
     x = rng.random((20, 512))
     y = rng.integers(0, 2, 20)
     seen = []
-    weights = TR.relieff_weights
+    rules = TR._rules_relieff
 
     def spy(D, *a, **k):
         seen.append(D.dtype)
-        return weights(D, *a, **k)
-    monkeypatch.setattr(TR, "relieff_weights", spy)
+        return rules(D, *a, **k)
+    monkeypatch.setattr(TR, "_rules_relieff", spy)
     assert RC.dist_dtype(64, 64, 512) == torch.float64
     RC.relief_fused_scores(x, y, np.ones(512, np.float32), np.zeros(512),
                            algo="relieff", n_neighbors=3,

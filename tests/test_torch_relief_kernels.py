@@ -9,6 +9,8 @@ atol 1e-4 with equal rankings, as ``tests/test_engines.py`` holds the
 Pallas engine to the generic one.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from numpy.testing import assert_allclose, assert_array_equal
 from fastselect_tpu.ops.relief_pallas import (pallas_accumulate,
                                               pallas_dist_matrix,
                                               relief_pallas_scores)
+from fastselect_tpu_torch import _build
 from fastselect_tpu_torch.ops import relief_cuda as RC
 from test_engines import CASES, _generic_scores
 
@@ -119,7 +122,7 @@ def test_blocked_engine_matches_square(monkeypatch, algo, star, k, ncls,
     square = RC.relief_fused_scores(x, y, recip, disc, **kw)
     # room for one 64-row tile per block: three blocks of 64 rows
     monkeypatch.setattr(RC, "_CPU_BLOCK_BYTES",
-                        RC._BYTES_PER_PAIR * 192 * RC.TILE_ROWS)
+                        RC._THRESHOLD_BLOCK_RULE * 192 * RC.TILE_ROWS)
     plan = RC.block_plan(n, p, torch.device("cpu"))
     assert (plan.nb, plan.n_pad) == (64, 192)
     blocked = RC.relief_fused_scores(x, y, recip, disc, **kw)
@@ -135,11 +138,13 @@ def test_blocked_engine_matches_square(monkeypatch, algo, star, k, ncls,
     (512, 32 * 512 * 64 * 5, 256),      # 8 tiles, room for 5: 2 blocks
     (50048, 32 * 50048 * 64 * 653, 25024),  # 782 = 2 * 391 tiles
 ])
-def test_focal_block_rows(n_pad, budget, expected):
-    nb = RC._focal_block_rows(n_pad, RC.TILE_ROWS, budget)
+def test_focal_block_rows(monkeypatch, n_pad, budget, expected):
+    monkeypatch.setattr(RC, "_block_budget_bytes", lambda *a: budget)
+    nb = RC.focal_block_rows(n_pad, torch.device("cpu"), "multisurf")
     assert nb == expected
-    assert n_pad % nb == 0 and nb * n_pad * RC._BYTES_PER_PAIR <= max(
-        budget, RC.TILE_ROWS * n_pad * RC._BYTES_PER_PAIR)
+    per_pair = RC._THRESHOLD_BLOCK_RULE
+    assert n_pad % nb == 0 and nb * n_pad * per_pair <= max(
+        budget, RC.TILE_ROWS * n_pad * per_pair)
 
 
 def test_fused_engine_is_deterministic(rng):
@@ -153,12 +158,12 @@ def test_wrappers_use_plain_versions_on_cpu_only(rng):
     xp, recip2, disc2 = _padded(rng, True)
     xp_t, r, d = _t(xp), _t(recip2[0]), _t(disc2[0])
     W = _t((rng.rand(N, N) - 0.5).astype(np.float32))
-    before = dict(RC.launches)
+    before = dict(_build.launches)
     assert torch.equal(RC.dist_matrix(xp_t, r, d, mixed=True),
                        RC.dist_matrix_ref(xp_t, r, d, mixed=True))
     assert torch.equal(RC.accumulate(xp_t, W, r, d, mixed=True),
                        RC.accumulate_ref(xp_t, W, r, d, mixed=True))
-    assert RC.launches == before   # no kernel ran
+    assert _build.launches == before   # no kernel ran
     # a device the kernels do not serve raises instead of falling back
     with pytest.raises(ValueError, match="unsupported device"):
         RC.dist_matrix(xp_t.to("meta"), r.to("meta"), d.to("meta"),
@@ -382,7 +387,7 @@ def test_blocked_engine_mixed_layouts_match_square(monkeypatch, layout, algo,
     kw = dict(algo=algo, use_star=star, n_neighbors=k, class_probs=cp)
     square = RC.relief_fused_scores(x, y, recip, disc, **kw)
     monkeypatch.setattr(RC, "_CPU_BLOCK_BYTES",
-                        RC._BYTES_PER_PAIR * 192 * RC.TILE_ROWS)
+                        RC._THRESHOLD_BLOCK_RULE * 192 * RC.TILE_ROWS)
     assert RC.block_plan(n, p, torch.device("cpu")).nb == 64
     blocked = RC.relief_fused_scores(x, y, recip, disc, **kw)
     assert_allclose(blocked, square, atol=2e-6, rtol=1e-6)
@@ -490,7 +495,6 @@ if "-c" in args:
 
 
 def _fake_nvcc(monkeypatch, tmp_path, fail=""):
-    from fastselect_tpu_torch import _build
     nvcc = tmp_path / "nvcc"
     nvcc.write_text(_FAKE_NVCC.format(fail=fail))
     nvcc.chmod(0o755)
@@ -524,3 +528,81 @@ def test_build_failure_leaves_no_library(monkeypatch, tmp_path):
         _build.build()
     assert not _build.library_path().exists()
     assert list((tmp_path / "kernels").iterdir()) == []
+
+
+def test_launch_passes_the_stream_last_raises_and_counts(monkeypatch):
+    """``_build.launch`` calls ``fs_<name>`` with the arguments and the
+    device's current stream last, raises with the kernel's name on a
+    nonzero code, and counts a launch that returned 0 under the name
+    without ``fs_``."""
+    calls = []
+
+    class Lib:
+        def fs_threshold_stats(self, *args):
+            calls.append(args)
+            return self.code
+
+        def fs_cuda_error_string(self, err):
+            return b"an illegal address"
+
+    class Stream:
+        cuda_stream = 1234
+
+    lib = Lib()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    monkeypatch.setitem(_build.launches, "threshold_stats", 5)
+    lib.code = 0
+    _build.launch("threshold_stats", torch.device("cuda", 0), 11, 22)
+    assert calls == [(11, 22, 1234)]
+    assert _build.launches["threshold_stats"] == 6
+    assert set(_build.launches) == {n[3:] for n in _build._SIGNATURES}
+    lib.code = 700
+    with pytest.raises(RuntimeError, match=r"threshold_stats launch failed: "
+                       r"CUDA error 700 \(an illegal address\)"):
+        _build.launch("threshold_stats", torch.device("cuda", 0), 11, 22)
+    assert _build.launches["threshold_stats"] == 6 and len(calls) == 2
+
+
+# (block budget in tiles of 32 B a pair, algo) -> the parent's focal rows of
+# block_plan and hybrid_plan at 50,000 samples, and of the sample shard on
+# four shards (50,176 padded samples, 12,544 focal rows a shard)
+PLANNED_ROWS = {(653, "multisurf"): (25024, 25024, 12544),
+                (653, "relieff"): (2944, 2944, 12544),
+                (400, "multisurf"): (25024, 2944, 12544),
+                (400, "relieff"): (2944, 2944, 12544),
+                (50, "multisurf"): (2944, 1472, 3136),
+                (50, "relieff"): (1472, 1088, 896)}
+
+
+@pytest.mark.parametrize("tiles,algo", list(PLANNED_ROWS))
+def test_planners_keep_their_focal_rows(monkeypatch, tiles, algo):
+    """The fused engine's ``block_plan``, the hybrid engine's blocked
+    ``hybrid_plan`` and the mesh's fused sample shard size their focal
+    blocks by ``focal_block_rows`` at a fixed budget as they did when each
+    held its own copy of the rule: large-n's 2 MultiSURF blocks of 25,024
+    rows and 17 ReliefF blocks of 2,944 rows among them."""
+    from fastselect_tpu_torch.ops import relief_hybrid as RH
+    from fastselect_tpu_torch.parallel import sharded as PSH
+    cpu = torch.device("cpu")
+    budget = 32 * 50048 * RC.TILE_ROWS * tiles
+    monkeypatch.setattr(RC, "_block_budget_bytes", lambda *a: budget)
+    seen = []
+
+    class Planned(Exception):
+        pass
+
+    def core(*a, nb, **k):
+        seen.append(nb)
+        raise Planned
+    monkeypatch.setattr(PSH, "relief_engine_core", core)
+    with pytest.raises(Planned):
+        PSH.sharded_relief_scores(
+            np.zeros((50000, 100), np.float32), np.zeros(50000, np.int64),
+            np.ones(100, np.float32), np.zeros(100, bool), algo=algo,
+            devices=[cpu] * 4)
+    got = (RC.block_plan(50000, 100, cpu, algo).nb,
+           RH.hybrid_plan(50000, 60, 40, 3, cpu, algo).nb, seen[0])
+    assert got == PLANNED_ROWS[tiles, algo]

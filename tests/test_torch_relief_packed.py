@@ -22,10 +22,9 @@ from numpy.testing import assert_allclose, assert_array_equal
 import chip_smoke as cs
 import fastselect_tpu.ops.relief_discrete as JD
 import fastselect_tpu_torch.ops.relief_discrete as TD
-from fastselect_tpu_torch import MultiSURF, ReliefF
+from fastselect_tpu_torch import MultiSURF, ReliefF, _build
 from fastselect_tpu_torch.interop import packed_codes_from_jax
 from fastselect_tpu_torch.models import _relief_base
-from fastselect_tpu_torch.ops import relief_cuda as rc
 from test_engines import CASES
 
 torch.set_num_threads(2)
@@ -437,7 +436,7 @@ def test_gwas_phase_rehearse(cpu_card, monkeypatch):
     # budget, gwas-gather (260 x 5001) past both
     monkeypatch.setattr(TD, "_DEVICE_SORT_BUDGET", 2.2 * 200 * 2100 - 1)
     monkeypatch.setattr(TD, "_PACKED_PROMOTE_BUDGET", 10 ** 6)
-    launched = dict(rc.launches)
+    launched = dict(_build.launches)
     res = cs.gwas_phase(torch.device("cpu"), X, y, head, sizes={
         "pack": dict(n=90, p=301),
         "promote": dict(n=200, p=2100),
@@ -446,4 +445,4 @@ def test_gwas_phase_rehearse(cpu_card, monkeypatch):
     assert res["gwas-gather"]["windows"] == 3
     assert res["gwas-gather"]["err"] <= cs.GWAS_TOL[0]
     assert max(v["err"] for v in res["routes"].values()) <= cs.GWAS_TOL[0]
-    assert rc.launches == launched
+    assert _build.launches == launched

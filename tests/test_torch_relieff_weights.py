@@ -1,8 +1,9 @@
 """ReliefF's pair weights from one launch (``ops/relief.py``
 ``relieff_weights``, ``csrc/relieff_select.cu``).
 
-On the CPU the wrapper runs its plain twin, the sort chain
-``_sum_rules(_rules_relieff(...))``.  The kernel cannot run here, so its
+On the CPU the fused engine's rule (``weight_rule``) is the kernel's
+plain twin, the sort chain ``_sum_rules(_rules_relieff(...))``.  The
+kernel cannot run here, so its
 algorithm is held to the twin through a plain model of it
 (:func:`_kernel_model`: the radix select of each label's k-th key by
 11-bit digits, then the picks in index order) fed by the operands the
@@ -20,6 +21,7 @@ import pytest
 import torch
 from numpy.testing import assert_array_equal
 
+from fastselect_tpu_torch import _build
 from fastselect_tpu_torch.ops import relief as TR
 from fastselect_tpu_torch.ops import relief_cuda as RC
 
@@ -89,6 +91,13 @@ def _block(rng, ncls, kind, *, t=16, n_real=37, n_pad=48, row0=16,
 def _twin(args, k):
     D, yi, vi, iid, y, valid, cp = args
     return TR._sum_rules(TR._rules_relieff(D, yi, vi, iid, y, valid, k, cp))
+
+
+def _cpu_rule(args, k):
+    """W of the fused engine's rule (``weight_rule``) on the CPU."""
+    D, yi, vi, iid, y, valid, cp = args
+    return TR.weight_rule(y, valid, None, cp, algo="relieff",
+                          use_star=False, k=k)(D, yi, vi, iid)
 
 
 GRID = [(ncls, k, kind, row0)
@@ -202,11 +211,11 @@ def _model(args, k):
 @pytest.mark.parametrize("ncls,k,kind,row0", GRID)
 def test_cpu_runs_the_sort_chain(ncls, k, kind, row0, rng):
     args = _block(rng, ncls, kind, row0=row0)
-    before = dict(RC.launches)
-    W = TR.relieff_weights(*args[:6], k, args[6])
+    before = dict(_build.launches)
+    W = _cpu_rule(args, k)
     assert W.dtype == torch.float32 and W.shape == args[0].shape
     assert_array_equal(_bits(W), _bits(_twin(args, k)))
-    assert RC.launches == before     # no kernel ran
+    assert _build.launches == before     # no kernel ran
 
 
 @pytest.mark.parametrize("ncls,k,kind,row0", GRID)
@@ -220,8 +229,7 @@ def test_kernel_model_equals_the_sort_chain_cases(case, rng):
     args, k = _case(rng, case)
     want = _twin(args, k)
     assert_array_equal(_bits(_model(args, k)), _bits(want))
-    assert_array_equal(_bits(TR.relieff_weights(*args[:6], k, args[6])),
-                       _bits(want))
+    assert_array_equal(_bits(_cpu_rule(args, k)), _bits(want))
     if case == "few members":
         _, yi, vi, _, y, _, _ = args
         picked = (want.numpy() != 0) & (y.numpy() == 2)[None, :]
@@ -248,9 +256,11 @@ def test_operands_count_hits_and_padding(rng):
 
 
 def test_engine_core_routes_relieff_to_the_new_rule(monkeypatch, rng):
-    """relief_engine_core on the CPU: ReliefF goes through relieff_weights
-    once a focal block (the sample shard's row0 included) and scores as
-    the rule chain it replaced bit for bit; MultiSURF keeps its rule."""
+    """relief_engine_core on the CPU: ReliefF's rule, made once a fit,
+    runs once a focal block with the block's global row ids (the sample
+    shard's row0 included) and scores as the sort chain bit for bit.  Off
+    the CPU it is relieff_weights on D rounded to float32, with the fit's
+    sorted labels; MultiSURF's rule does not go through it."""
     n, p, nb = 96, 8, 32
     x = torch.from_numpy(rng.rand(n, p).astype(np.float32))
     y = torch.from_numpy(rng.randint(0, 3, n).astype(np.int64))
@@ -261,27 +271,41 @@ def test_engine_core_routes_relieff_to_the_new_rule(monkeypatch, rng):
     cp = torch.tensor([0.3, 0.3, 0.4])
     n_real = torch.tensor(90.0)
 
-    def core(row0, algo="relieff"):
+    def core(row0, rule=None):
         rows = slice(row0, n)
         return RC.relief_engine_core(
             x[rows], y[rows], valid[rows], row0, x, y, valid, recip, disc,
-            n_real, cp, algo=algo, use_star=False, k=4, nb=nb)
+            n_real, cp, algo="relieff", use_star=False, k=4, nb=nb,
+            rule=rule)
 
     calls = []
-    new = TR.relieff_weights
-    monkeypatch.setattr(TR, "relieff_weights",
-                        lambda *a: calls.append(a[3][0].item()) or new(*a))
+    new = TR.weight_rule
+
+    def spy(*a, **kw):
+        rule = new(*a, **kw)
+        return lambda D, yi, vi, iid: (calls.append(iid[0].item())
+                                       or rule(D, yi, vi, iid))
+    monkeypatch.setattr(TR, "weight_rule", spy)
     got = {row0: core(row0) for row0 in (0, 32)}
     assert calls == [0, 32, 64, 32, 64]
-    monkeypatch.setattr(TR, "relieff_weights", lambda *a: TR._sum_rules(
-        TR.pair_weight_rules(*a[:6], n_real, a[7], algo="relieff",
-                             use_star=False, k=a[6])))
+
+    def chain(y_flat, valid_flat, n_real, cp, **kw):
+        return lambda D, yi, vi, iid: TR._sum_rules(TR._rules_relieff(
+            D, yi, vi, iid, y_flat, valid_flat, kw["k"], cp))
     for row0, scores in got.items():
-        assert_array_equal(_bits(scores), _bits(core(row0)))
-    calls.clear()
-    monkeypatch.setattr(TR, "relieff_weights", lambda *a: calls.append(1))
-    core(0, "multisurf")
-    assert not calls
+        assert_array_equal(_bits(scores), _bits(core(row0, rule=chain)))
+    seen = []
+    monkeypatch.setattr(TR, "relieff_weights", lambda *a: seen.append(
+        (a[0].dtype, a[6], a[8][0].dtype, a[8][1].dtype)) or a[0])
+    monkeypatch.setattr(TR, "threshold_weights", lambda *a, **kw: a[0])
+    meta = torch.device("meta")
+    D = torch.empty((nb, n), dtype=torch.float64, device=meta)
+    block = (D, y[:nb].to(meta), valid[:nb].to(meta),
+             torch.arange(nb, device=meta))
+    for algo in ("relieff", "multisurf"):
+        new(y.to(meta), valid.to(meta), n_real.to(meta), cp.to(meta),
+            algo=algo, use_star=False, k=4)(*block)
+    assert seen == [(torch.float32, 4, torch.int32, torch.int32)]
 
 
 # ---------------------------------------------------------------------------
@@ -296,9 +320,9 @@ def _to(args, dev):
 @pytest.mark.parametrize("ncls,k,kind,row0", GRID)
 def test_kernel_equals_the_sort_chain_on_the_card(ncls, k, kind, row0, rng):
     args = _to(_block(rng, ncls, kind, row0=row0), _card())
-    before = RC.launches["relieff_weights"]
+    before = _build.launches["relieff_weights"]
     W = TR.relieff_weights(*args[:6], k, args[6])
-    assert RC.launches["relieff_weights"] == before + 1
+    assert _build.launches["relieff_weights"] == before + 1
     assert_array_equal(_bits(W), _bits(_twin(args, k)))
 
 
@@ -328,18 +352,19 @@ def test_one_launch_a_focal_block_on_the_card(monkeypatch, rng):
     plan = RC.block_plan(n, p, card, "relieff")
     blocks = plan.n_pad // plan.nb
     assert blocks > 1
-    before = dict(RC.launches)
+    before = dict(_build.launches)
     RC.relief_fused_scores(x, y, torch.ones(p), np.zeros(p, bool),
                            algo="relieff", n_neighbors=5,
                            class_probs=np.array([0.5, 0.5], np.float32))
-    moved = {k: RC.launches[k] - before[k] for k in RC.launches}
+    moved = {k: _build.launches[k] - before[k] for k in before}
     assert moved["relieff_weights"] == blocks
     assert moved["relief_pass1_cont"] == moved["relief_pass2_cont"] == blocks
 
 
 def test_chip_phase_28_rehearses(monkeypatch):
-    """chip_smoke.py's phase 28 at a small size on the CPU: the twin
-    stands in for the call, the plain model for the launch."""
+    """chip_smoke.py's phase 28 at a small size on the CPU: the call on
+    CPU tensors (its operand checks but the device's passed), the plain
+    model for the launch."""
     import time
 
     import chip_smoke as cs
@@ -355,6 +380,8 @@ def test_chip_phase_28_rehearses(monkeypatch):
     monkeypatch.setattr(cs, "cuda_ms", host_ms)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
     monkeypatch.setattr(TR, "_relieff_launch", model_launch)
+    monkeypatch.setattr(TR, "_check_rule_operands",
+                        lambda name, dtypes, D, yi, y: D.shape)
     cpu = torch.device("cpu")
     X, y = cs.make_classification(n_samples=150, n_features=12,
                                   n_informative=4, random_state=0)

@@ -438,6 +438,7 @@ def test_chip_phase_25_rehearses(auto, monkeypatch, staged_cpu):
     held to the one-shot fit or the fit of host-rounded X bit for bit,
     the chunk widths and the copy seconds read."""
     import chip_smoke as cs
+    from fastselect_tpu_torch import _build
     from fastselect_tpu_torch.ops import relief_cuda as rc
     for name in ("synchronize", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, name, lambda *a: None)
@@ -448,7 +449,7 @@ def test_chip_phase_25_rehearses(auto, monkeypatch, staged_cpu):
         orig = getattr(rc, name)
 
         def counted(*a, _orig=orig, _pass=pass_no, **k):
-            rc.launches[f"relief_pass{_pass}_"
+            _build.launches[f"relief_pass{_pass}_"
                         f"{'mixed' if k['mixed'] else 'cont'}"] += 1
             return _orig(*a, **k)
         monkeypatch.setitem(rc.relief_fused_scores.__kwdefaults__,

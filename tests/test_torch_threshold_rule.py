@@ -1,8 +1,9 @@
 """MultiSURF's and SURF's pair weights from two launches (``ops/relief.py``
 ``threshold_weights``, ``csrc/threshold_rule.cu``).
 
-On the CPU the wrapper runs the chain it replaces on the card,
-``_sum_rules(pair_weight_rules(...))``.  The kernels cannot run here, so
+On the CPU the fused engine's rule (``weight_rule``) is the chain the
+kernels replace on the card, ``_sum_rules(pair_weight_rules(...))``.  The
+kernels cannot run here, so
 their arithmetic is held to the chain through a plain model of it
 (:func:`_kernel_model`: the chain's shift, float64 sums of the shifted
 row rounded to D's dtype, the threshold rounded step by step, integer
@@ -26,7 +27,7 @@ import torch
 from numpy.testing import assert_array_equal
 
 import chip_smoke as cs
-from fastselect_tpu_torch import MultiSURF, SURF
+from fastselect_tpu_torch import SURF, MultiSURF, _build
 from fastselect_tpu_torch.ops import relief as TR
 from fastselect_tpu_torch.ops import relief_cuda as RC
 
@@ -172,10 +173,11 @@ def _kernel_model(args, algo, star):
 @pytest.mark.parametrize("case,algo,star,dtype", GRID)
 def test_cpu_runs_the_chain(case, algo, star, dtype, rng):
     args = _case(rng, case, dtype)
-    before = dict(RC.launches)
-    W = TR.threshold_weights(*args, algo=algo, use_star=star)
+    before = dict(_build.launches)
+    rule = TR.weight_rule(*args[4:], None, algo=algo, use_star=star, k=0)
+    W = rule(*args[:4])
     assert_array_equal(_bits(W), _bits(_chain(args, algo, star)))
-    assert RC.launches == before     # no kernel ran
+    assert _build.launches == before     # no kernel ran
 
 
 @pytest.mark.parametrize("case,algo,star,dtype", GRID)
@@ -236,21 +238,23 @@ def test_wrapper_checks_raise_on_the_card():
     args = _block(np.random.RandomState(1), "float", torch.float32)
     args = tuple(a.to(card) for a in args)
     D, rest = args[0], args[1:]
-    before = dict(RC.launches)
+    before = dict(_build.launches)
     for bad in (D.half(), D[:, :44]):
         with pytest.raises(ValueError, match="16-byte aligned rows"):
             TR.threshold_weights(bad, *rest, algo="surf", use_star=False)
     with pytest.raises(ValueError, match="sample_labels"):
         TR.threshold_weights(*args, algo="surf", use_star=False,
                              labels=TR.sample_labels(args[4], args[5]).long())
-    assert RC.launches == before
+    assert _build.launches == before
 
 
 def test_engine_core_routes_by_algorithm(monkeypatch, rng):
-    """relief_engine_core on the CPU: MultiSURF and SURF go through
-    threshold_weights once a focal block (the sample shard's row0
-    included) and score as the rule chain they replaced bit for bit;
-    ReliefF does not go through it."""
+    """relief_engine_core makes the fit's rule once (``weight_rule``) and
+    calls it once a focal block with the block's global row ids (the
+    sample shard's row0 included); on the CPU it is the rule chain, bit for
+    bit.  Off the CPU the rule is the kernels: MultiSURF and SURF go
+    through threshold_weights with the fit's sample labels, on D as it
+    is; ReliefF does not go through it."""
     n, p, nb = 96, 8, 32
     x = torch.from_numpy(rng.rand(n, p).astype(np.float32))
     y = torch.from_numpy(rng.randint(0, 3, n).astype(np.int64))
@@ -261,60 +265,74 @@ def test_engine_core_routes_by_algorithm(monkeypatch, rng):
     cp = torch.tensor([0.3, 0.3, 0.4])
     n_real = torch.tensor(90.0)
 
-    def core(row0, algo, star=False):
+    def core(row0, algo, star=False, rule=None):
         rows = slice(row0, n)
         return RC.relief_engine_core(
             x[rows], y[rows], valid[rows], row0, x, y, valid, recip, disc,
-            n_real, cp, algo=algo, use_star=star, k=4, nb=nb)
+            n_real, cp, algo=algo, use_star=star, k=4, nb=nb, rule=rule)
 
     calls = []
-    new = TR.threshold_weights
-    monkeypatch.setattr(TR, "threshold_weights", lambda *a, **kw: (
-        calls.append((a[3][0].item(), kw["algo"])) or new(*a, **kw)))
+    new = TR.weight_rule
+
+    def spy(*a, **kw):
+        rule = new(*a, **kw)
+        calls.append(kw["algo"])
+        return lambda D, yi, vi, iid: (calls.append(iid[0].item())
+                                       or rule(D, yi, vi, iid))
+    monkeypatch.setattr(TR, "weight_rule", spy)
     got = {(row0, algo, star): core(row0, algo, star)
            for row0 in (0, 32) for algo, star in RULES}
-    assert calls == [(b0, algo) for row0 in (0, 32) for algo, _ in RULES
-                     for b0 in range(row0, n, nb)]
-    monkeypatch.setattr(TR, "threshold_weights", lambda *a, **kw: (
-        TR._sum_rules(TR.pair_weight_rules(
-            *a, None, algo=kw["algo"], use_star=kw["use_star"], k=0))))
+    assert calls == [c for row0 in (0, 32) for algo, _ in RULES
+                     for c in [algo, *range(row0, n, nb)]]
     for (row0, algo, star), scores in got.items():
-        assert_array_equal(_bits(scores), _bits(core(row0, algo, star)))
-    calls.clear()
-    monkeypatch.setattr(TR, "threshold_weights",
-                        lambda *a, **kw: calls.append(1))
-    core(0, "relieff")
-    assert not calls
+        assert_array_equal(_bits(scores), _bits(core(
+            row0, algo, star, rule=TR.chain_rule)))
+    seen = []
+    monkeypatch.setattr(TR, "threshold_weights", lambda *a, **kw: (
+        seen.append((a[0].dtype, kw["algo"], kw["use_star"],
+                     kw["labels"].dtype)) or a[0]))
+    monkeypatch.setattr(TR, "relieff_weights", lambda *a: a[0])
+    meta = torch.device("meta")
+    D = torch.empty((nb, n), dtype=torch.float64, device=meta)
+    block = (D, y[:nb].to(meta), valid[:nb].to(meta),
+             torch.arange(nb, device=meta))
+    for algo, star in RULES + [("relieff", False)]:
+        new(y.to(meta), valid.to(meta), n_real.to(meta), cp.to(meta),
+            algo=algo, use_star=star, k=4)(*block)
+    assert seen == [(torch.float64, algo, star, torch.int32)
+                    for algo, star in RULES]
 
 
 @pytest.mark.parametrize("algo,star", RULES + [("relieff", False)])
 def test_engine_core_takes_a_rule_in_place_of_the_kernels(monkeypatch, algo,
                                                           star, rng):
-    """``rule`` (``relief_fused_scores``' ``_rule``) replaces the weight
-    rule once a focal block, with no call of either kernel's wrapper:
-    ``chain_weights`` there scores as the default route bit for bit."""
+    """``rule`` (``relief_fused_scores``' ``_rule``) makes the weight rule
+    in place of ``weight_rule``, once a fit, and runs once a focal block
+    with no call of either kernel's wrapper: ``chain_rule`` there scores
+    as the default route bit for bit."""
     n, p = 80, 12
     x = rng.rand(n, p).astype(np.float32)
     y = rng.randint(0, 3, n)
     recip, disc = np.ones(p, np.float32), np.zeros(p, bool)
     cp = (np.bincount(y) / n).astype(np.float32)
     monkeypatch.setattr(RC, "_CPU_BLOCK_BYTES",
-                        RC._BYTES_PER_PAIR * 128 * 128 // 2)
+                        RC._THRESHOLD_BLOCK_RULE * 128 * 128 // 2)
     plan = RC.block_plan(n, p, torch.device("cpu"), algo)
     assert plan.n_pad // plan.nb >= 2
     kw = dict(algo=algo, use_star=star, n_neighbors=4, class_probs=cp)
     want = RC.relief_fused_scores(x, y, recip, disc, **kw)
     calls = []
 
-    def rule(D, yi, *a, **k):
-        calls.append(D.dtype)
-        return TR.chain_weights(D, yi, *a, **k)
+    def make(*a, **k):
+        chain = TR.chain_rule(*a, **k)
+        calls.append("made")
+        return lambda D, *b: calls.append(D.dtype) or chain(D, *b)
 
-    for wrapper in ("threshold_weights", "relieff_weights"):
-        monkeypatch.setattr(TR, wrapper, lambda *a, **k: pytest.fail(
-            "a kernel wrapper ran"))
-    got = RC.relief_fused_scores(x, y, recip, disc, _rule=rule, **kw)
-    assert calls == [torch.float32] * (plan.n_pad // plan.nb)
+    for name in ("threshold_weights", "relieff_weights", "weight_rule"):
+        monkeypatch.setattr(TR, name, lambda *a, **k: pytest.fail(
+            "the default rule ran"))
+    got = RC.relief_fused_scores(x, y, recip, disc, _rule=make, **kw)
+    assert calls == ["made"] + [torch.float32] * (plan.n_pad // plan.nb)
     assert_array_equal(_bits(got), _bits(want))
 
 
@@ -345,11 +363,12 @@ def _large_n_block(dev, dtype, seed=21):
 def _on_card(args, algo, star, what):
     """The kernels' W held to the chain on the card, twice the same;
     prints the pairs that changed sides."""
-    before = dict(RC.launches)
+    before = dict(_build.launches)
     W = TR.threshold_weights(*args, algo=algo, use_star=star)
     again = TR.threshold_weights(*args, algo=algo, use_star=star)
-    assert RC.launches["threshold_stats"] == before["threshold_stats"] + 2
-    assert RC.launches["threshold_weights"] == \
+    assert _build.launches["threshold_stats"] == \
+        before["threshold_stats"] + 2
+    assert _build.launches["threshold_weights"] == \
         before["threshold_weights"] + 2
     assert torch.equal(W, again)
     moved = _held(W, args, algo, star)
@@ -407,14 +426,14 @@ def test_fits_against_the_reference_on_the_card(make, algo, monkeypatch,
     n, p, n_select = 4096, 100, 10
     X = rng.randn(n, p)
     y = (X[:, :5].sum(axis=1) + 0.5 * rng.randn(n) > 0).astype(np.int64)
-    monkeypatch.setattr(RC, "_block_budget_bytes",
-                        lambda *a, **k: RC._BYTES_PER_PAIR * n * n // 2)
+    monkeypatch.setattr(RC, "_block_budget_bytes", lambda *a, **k:
+                        RC._THRESHOLD_BLOCK_RULE * n * n // 2)
     plan = RC.block_plan(n, p, card, algo)
     assert plan.n_pad // plan.nb == 2
-    before = dict(RC.launches)
+    before = dict(_build.launches)
     est = make(n_features_to_select=n_select).fit(
         torch.from_numpy(X.astype(np.float32)).to(card), y)
-    moved = {k: RC.launches[k] - before[k] for k in RC.launches}
+    moved = {k: _build.launches[k] - before[k] for k in before}
     assert moved["threshold_stats"] == moved["threshold_weights"] == 2
     want = ref.relief_scores(X.astype(np.float32), [y], algo=algo,
                              device=card)[0]
@@ -426,7 +445,7 @@ def test_fits_against_the_reference_on_the_card(make, algo, monkeypatch,
 
 def test_chip_phase_29_rehearses(monkeypatch):
     """chip_smoke.py's phase 29 at a small size on the CPU: the chain
-    stands in for the calls, zeros for the launches."""
+    (``chain_rule``) stands in for the calls, zeros for the launches."""
     import time
 
     def host_ms(fn, reps, warmup=1):
@@ -436,6 +455,11 @@ def test_chip_phase_29_rehearses(monkeypatch):
 
     monkeypatch.setattr(cs, "cuda_ms", host_ms)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    monkeypatch.setattr(
+        TR, "threshold_weights",
+        lambda D, yi, vi, iid, y, valid, n_real, *, algo, use_star: (
+            TR.chain_rule(y, valid, n_real, None, algo=algo,
+                          use_star=use_star, k=0)(D, yi, vi, iid)))
     monkeypatch.setattr(TR, "_threshold_stats", lambda D, *a: (
         torch.zeros(D.shape[0], dtype=D.dtype), torch.zeros(D.shape[0], 4)))
     monkeypatch.setattr(TR, "_threshold_launch", lambda D, *a: torch.zeros(

@@ -173,7 +173,7 @@ def test_rule_stats_span_and_pass1_ranges(info_log, monkeypatch, rng):
     the root's ``pass1_ranges`` adds up pass 1's feature ranges over the
     blocks (4 a block here)."""
     monkeypatch.setattr(rc, "_CPU_BLOCK_BYTES",
-                        rc._BYTES_PER_PAIR * 192 * rc.TILE_ROWS)
+                        rc._THRESHOLD_BLOCK_RULE * 192 * rc.TILE_ROWS)
     n, p = 150, 600
     MultiSURF(backend="cpu").fit(rng.rand(n, p), rng.randint(0, 2, n))
     plan = rc.block_plan(n, p, torch.device("cpu"))
@@ -206,7 +206,7 @@ def test_card_fit_counts_the_rule_launches(info_log, monkeypatch):
     rng = np.random.RandomState(0)
     n, p = 150, 600
     monkeypatch.setattr(rc, "_block_budget_bytes", lambda *a, **k:
-                        rc._BYTES_PER_PAIR * 192 * rc.TILE_ROWS)
+                        rc._THRESHOLD_BLOCK_RULE * 192 * rc.TILE_ROWS)
     assert rc.block_plan(n, p, card).nb == rc.TILE_ROWS
     X = torch.from_numpy(rng.rand(n, p).astype(np.float32)).to(card)
     MultiSURF().fit(X, rng.randint(0, 2, n))

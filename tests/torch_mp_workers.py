@@ -26,7 +26,7 @@ import fastselect_tpu_torch.parallel as TP
 import fastselect_tpu_torch.parallel.feature_shard as TFS
 import fastselect_tpu_torch.parallel.ring as TRING
 import fastselect_tpu_torch.parallel.sharded as TSH
-from fastselect_tpu_torch import MDR, MultiSURF
+from fastselect_tpu_torch import MDR, MultiSURF, _build
 from fastselect_tpu_torch.ops import contingency as ct
 from fastselect_tpu_torch.ops import relief_cuda as rc
 from fastselect_tpu_torch.parallel import distributed
@@ -303,6 +303,6 @@ def rehearse_on_cpu():
 
         def counted(*a, _orig=orig, _pass=pass_no, **k):
             kind = "mixed" if k["mixed"] else "cont"
-            rc.launches[f"relief_pass{_pass}_{kind}"] += 1
+            _build.launches[f"relief_pass{_pass}_{kind}"] += 1
             return _orig(*a, **k)
         setattr(rc, name, counted)

@@ -196,7 +196,7 @@ Phases, one or two lines each on stdout:
     index, FT 1,024), focal blocks of 4,096 (``WINDOWS``):
     ``window_onehot`` bit for bit, transposed at FT (pass 2's operand)
     and flat at FT (the precomputed one-hot's tile) and at the width
-    ``_match_rows`` gives pass 1 (``pass1_width``: 4,096 and 10,240
+    ``_match_rows`` gives pass 1 (``pass1_width``: 8,192 and 13,312
     features), over all rows and over one focal block; ``window_partials``
     on products built as ``_accumulate_plan`` builds them, for MultiSURF
     on a single-class and a straddling block, ReliefF with 3 classes,
@@ -233,7 +233,25 @@ Phases, one or two lines each on stdout:
     statistics launch and the weights launch alone, the
     whole call and the chain (``library_ms``, mean of 3), beside each
     launch's bound (4 B a pair of float32 D for the statistics, 8 B for
-    the weights, at 3.35 TB/s).
+    the weights, at 3.35 TB/s);
+30. gemm, after phase 27: the discrete engine's int8 GEMM
+    (``csrc/int8_gemm.cu``, ``ops/relief_discrete.py:int8_gemm``) against
+    ``torch._int_mm`` bit for bit at the engine's shapes (``GEMM_CASES``:
+    pass 1's 4,096 x 32,768 window at 6 and 2 tiles added into counts
+    that are not zero, pass 2's 4,096 x 3,072 class segment starting off
+    128 in rows 32,768 bytes apart, against the parent's cut at 8 too, a
+    v2-sym block row written into its match matrix, a ragged small
+    shape), each timed with CUDA events (mean of 10) beside its twin,
+    ``_int_mm`` alone at the parent's operands (``library_ms``) and at
+    the kernel's 128-byte aligned cut (``library_aligned_ms``), and its
+    bound (2 m n k at the int8 peak); then a MultiSURF fit of snp-paper's
+    size (30,000 x 200,000 codes on the card) through the kernel, its
+    launches counted in all and at each case's shape, and as the parent
+    computed it (``torch._int_mm``, an int32 add a pass-1 window of the
+    parent's width, sizes and segments cut at 8): the scores bit for
+    bit.  Phases 7, 8 and 24 count the kernel's launches beside the
+    window kernels', and phase 21's mesh-snp, mesh-v2 and mesh-ring
+    count them on their shards: it must launch in each.
 
 Phases 14-20 print their first and warm fit times, int8 GEMM operations
 (``relief_discrete.gemm_ops``) and rate, peak device memory, the host
@@ -268,14 +286,16 @@ must launch the continuous kernels and the int8 GEMMs and no ``MIXED``
 kernel, and is held against the fused engine with the ``MIXED`` kernels
 on the same rows in the hybrid's order.  Any failed check raises, so the
 script exits non-zero; it also fails when no CUDA device is present.  The
-line before the last is a JSON summary of the nine kernels (launches,
+line before the last is a JSON summary of the ten kernels (launches,
 errors, times, bounds and registers, per timed shape; the window
-kernels' launches are phase 7's, with phases 7, 8 and 24 apart under
+kernels' and the int8 GEMM's launches are phase 7's, with phases 7, 8
+and 24, and for the GEMM phase 21's discrete mesh layouts, apart under
 ``phase_launches``); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import datetime
 import hashlib
 import importlib.util
@@ -348,9 +368,16 @@ RULE_KERNELS = {
     "threshold_weights": ("fastselect_tpu_torch/csrc/threshold_rule.cu",
                           "fastselect_tpu/ops/relief.py:_rules_multisurf"),
 }
+# The discrete engine's int8 GEMM -> (source, what it replaces: no Pallas
+# kernel, the JAX package leaves the products to XLA's dot_general)
+GEMM_KERNELS = {
+    "int8_gemm": ("fastselect_tpu_torch/csrc/int8_gemm.cu",
+                  "torch._int_mm; fastselect_tpu/ops/relief_discrete.py "
+                  "dot_general"),
+}
 # the fused engine's kernels: its two passes of each kind and its rules
 FUSED_KERNELS = (*KERNELS, *RULE_KERNELS)
-# __global__ functions of each of the nine kernels, as ptxas names them
+# __global__ functions of each of the ten kernels, as ptxas names them
 # (mangled: pass 1's kind template has the instances ILb0 and ILb1, each
 # with a float and a double accumulator)
 KERNEL_FUNCTIONS = {"relief_pass1_cont": ("dist_kernelILb0",
@@ -364,7 +391,8 @@ KERNEL_FUNCTIONS = {"relief_pass1_cont": ("dist_kernelILb0",
                                         "partials_finish_kernel"),
                     "relieff_weights": ("relieff_select_kernel",),
                     "threshold_stats": ("threshold_stats_kernel",),
-                    "threshold_weights": ("threshold_weights_kernel",)}
+                    "threshold_weights": ("threshold_weights_kernel",),
+                    "int8_gemm": ("int8_gemm_kernel",)}
 # pass 1 of either kind must equal its plain version bit for bit
 SCORE_RTOL = 1e-3    # pass 2 against its plain version, relative to max|s|
 FIT_ATOL = 1e-4      # fitted scores against the plain-pass engine
@@ -393,6 +421,8 @@ ALGO = {"MultiSURF": "multisurf", "SURF": "surf", "ReliefF": "relieff"}
 # phase 21's results on its first mesh (four shards on the first card),
 # which phase 23's processes are held to
 MESH_RESULTS: dict = {}
+# phase 21's launches of the int8 GEMM on its first mesh, by layout
+MESH_GEMM_LAUNCHES: dict = {}
 # phase 23: processes sharing the first card, and their hard deadline
 MESH_PROCS = 4
 MESH_PROCS_DEADLINE_S = 300.0
@@ -783,7 +813,7 @@ def discrete_phase(dev, label, est, X, y, tier, warm=0):
                            kw.get("class_probs"), device=dev)
     check(got == tier, f"{label}: tier {got}, expected {tier}")
     before = launch_counts()
-    window0 = launch_counts(WINDOW_KERNELS)
+    window0 = launch_counts((*WINDOW_KERNELS, *GEMM_KERNELS))
     times, peaks = [], []
     for _ in range(1 + warm):
         rd.reset_gemm_ops()
@@ -796,7 +826,8 @@ def discrete_phase(dev, label, est, X, y, tier, warm=0):
     s = est.feature_importances_
     check(est.effective_backend_ == "cuda", f"{label}: effective_backend_")
     check(not any(moved.values()), f"{label}: fused launches {moved}")
-    check(all(window.values()), f"{label}: window kernels launched {window}")
+    check(all(window.values()), f"{label}: window kernels and the int8 "
+          f"GEMM launched {window}")
     check(ops > 0, f"{label}: no int8 GEMM ran")
     check(est.is_discrete_.all(), f"{label}: every column discrete")
     check(s.shape == (p,) and np.isfinite(s).all(),
@@ -819,7 +850,8 @@ def discrete_phase(dev, label, est, X, y, tier, warm=0):
         if warm else ""
     print(f"{label}: {type(est).__name__} X {n}x{p} {X.dtype} tier {tier}; "
           f"fit {times[0]:.4f} s{warm_s}; gemm_ops {ops:.4e}; peak "
-          f"{max(peaks):.2f} GB; window kernels {window}; MIXED-kernel "
+          f"{max(peaks):.2f} GB; window kernels and int8 GEMM {window}; "
+          f"MIXED-kernel "
           f"fused engine {ref_s:.4f} s; max |scores - MIXED| {err:.3e}; "
           f"top_features_ {est.top_features_.tolist()} equal", flush=True)
     return dict(first_s=times[0], warm_s=times[1:], gemm_ops=ops,
@@ -2072,14 +2104,16 @@ def gwas_phase(dev, X, y, head, sizes=None):
     compared = pack_checks(dev, **sizes.get("pack", {}))
     print(f"gwas pack checks: {compared} tensors packed, unpacked, matched "
           f"and promoted on the card equal the CPU's", flush=True)
-    window0 = launch_counts(WINDOW_KERNELS)
+    window0 = launch_counts((*WINDOW_KERNELS, *GEMM_KERNELS))
     res = {"routes": headline_routes(dev, X, y, head)}
     res["gwas-promote"] = gwas_promote_phase(dev, **sizes.get("promote", {}))
     res["gwas-gather"] = gwas_gather_phase(dev, **sizes.get("gather", {}))
     res["window_launches"] = launches_since(window0)
-    # the window kernels run on the card; on the CPU their twins do
+    # the window kernels and the int8 GEMM run on the card; on the CPU
+    # their twins do
     check(dev.type != "cuda" or all(res["window_launches"].values()),
-          f"gwas: window kernels launched {res['window_launches']}")
+          f"gwas: window kernels and the int8 GEMM launched "
+          f"{res['window_launches']}")
     res["phase_s"] = time.perf_counter() - t0
     print(f"gwas: phase {res['phase_s']:.2f} s", flush=True)
     return res
@@ -2146,18 +2180,22 @@ def mesh_fit_phase(mesh, label, make, X, y, single, route, kind, tol,
     """``make().fit(X, y)`` through the automatic route with ``mesh``
     (then ``warm`` more, timed): it must call ``route`` (module, name) and
     run the ``kind`` of work ('cont' or 'mixed' kernels, or 'gemm': int8
-    GEMMs and no Relief kernel), launches counted over the first fit;
-    its scores agree with ``single`` (the fit on one device) within
-    ``tol`` (atol, rtol), its top_features_ alike.
-    The first mesh's scores are kept in ``MESH_RESULTS[label]``; a ring
-    fit's sweeps and rules are timed apart (``ring_phases``).
+    GEMMs and no Relief kernel; on the card the int8 GEMM kernel),
+    launches counted over the first fit; its scores agree with
+    ``single`` (the fit on one device) within ``tol`` (atol, rtol), its
+    top_features_ alike.
+    The first mesh's scores are kept in ``MESH_RESULTS[label]``, the first
+    mesh's launches of the int8 GEMM in ``MESH_GEMM_LAUNCHES[label]``; a
+    ring fit's sweeps and rules are timed apart (``ring_phases``).
     Returns (first fit's seconds, warm fits' seconds, peak GB)."""
     with MeshRoute(mesh, [route], ring_bytes) as mr, \
             PhaseRecords("ring.", on=ring_bytes is not None) as ring_log:
         before = launch_counts()
+        gemm0 = launch_counts(GEMM_KERNELS)
         rd.reset_gemm_ops()
         est, sec, peak = mesh_timed(mesh, lambda: make().fit(X, y))
         launches, ops = launches_since(before), rd.gemm_ops
+        gemm = launches_since(gemm0)
         warm_s = [mesh_timed(mesh, lambda: make().fit(X, y))[1]
                   for _ in range(warm)]
     s = est.feature_importances_
@@ -2170,6 +2208,9 @@ def mesh_fit_phase(mesh, label, make, X, y, single, route, kind, tol,
         check(ops > 0 and not any(launches.values()),
               f"{label}: int8 GEMMs ({ops} ops) and no Relief kernel "
               f"({launches})")
+        check(mesh[0].type != "cuda" or all(gemm.values()),
+              f"{label}: the int8 GEMM launched {gemm} on {mesh_name(mesh)}")
+        MESH_GEMM_LAUNCHES.setdefault(label, gemm)
     else:
         other = "mixed" if kind == "cont" else "cont"
         check(launches[f"relief_pass1_{kind}"] > 0
@@ -2187,7 +2228,8 @@ def mesh_fit_phase(mesh, label, make, X, y, single, route, kind, tol,
     print(f"{label}: {type(est).__name__} X {X.shape[0]}x{X.shape[1]} on "
           f"{len(mesh)} shards ({mesh_name(mesh)}) via {route[1]}; fit "
           f"{sec:.4f} s{''.join(f', warm {t:.4f} s' for t in warm_s)}; peak "
-          f"{peak:.2f} GB; launches {launches}; gemm_ops {ops:.4e}; max "
+          f"{peak:.2f} GB; launches {launches}"
+          f"{f', {gemm}' if kind == 'gemm' else ''}; gemm_ops {ops:.4e}; max "
           f"|scores - one device| {err:.3e}; top_features_ equal",
           flush=True)
     if ring_log.records:
@@ -3414,7 +3456,7 @@ def window_phase(dev, windows=WINDOWS):
     timing = {k: [] for k in WINDOW_KERNELS}
     before = launch_counts(WINDOW_KERNELS)
     for label, n, w, ti, two, three, many in windows:
-        fw = rd.pass1_width(n, 3, w)
+        fw = rd.pass1_width(n, 3, w, ti)
         codes, bits, rows = window_data(dev, label, n, max(2 * w, fw),
                                         seed=27)
         off = w
@@ -3532,6 +3574,214 @@ def window_phase(dev, windows=WINDOWS):
     print(f"windows: phase {time.perf_counter() - t0:.2f} s on {SMI}",
           flush=True)
     return err, timing
+
+
+# ---------------------------------------------------------------------------
+# The discrete engine's int8 GEMM (phase 30)
+# ---------------------------------------------------------------------------
+
+# phase 30's products at the engine's shapes: (label, m, n, k, accumulate,
+# form of B: "rows" (n, k) contiguous, "segment" a class segment of k
+# columns from column k of pass 2's transposed one-hot, "sym" the rows of
+# the symmetric tier's one-hot from the block row on, into its match
+# matrix)
+GEMM_CASES = (
+    ("pass 1, snp-paper's window (6 tiles)", 4096, 32768, 18432, True,
+     "rows"),
+    ("pass 1 at 2 tiles", 4096, 32768, 6144, True, "rows"),
+    ("pass 2, a class segment", 4096, 3072, 15003, False, "segment"),
+    ("v2-sym block row (headline)", 4096, 12288, 196608, False, "sym"),
+    ("ragged", 48, 204, 80, True, "rows"),
+)
+# phase 30's full fit: snp-paper's size (the benchmark's flagship)
+GEMM_FIT = (30000, 200000)
+
+
+def exact_product(a, b):
+    """a @ b.T exactly: ``torch._int_mm`` where the card's cuBLASLt takes
+    the shape, else float64 (exact for these sums)."""
+    m, k = a.shape
+    if a.device.type != "cuda" or (m > 16 and k % 8 == 0
+                                   and b.shape[0] % 8 == 0):
+        return torch._int_mm(a.contiguous(), b.t())
+    return (a.double() @ b.double().t()).to(torch.int32)
+
+
+def gemm_operands(dev, m, n, k, form, seed):
+    """(A, B, out, (the parent's A, B) or None, a label of the cut) of a
+    phase 30 case: 0/1 operands, -1/0/1 for pass 2's rule operand, out a
+    view with rows further apart than its width where the engine's is."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, lo=0, hi=2):
+        return torch.randint(lo, hi, shape, dtype=torch.int8, device=dev,
+                             generator=g)
+    parent = None
+    if form == "segment":
+        n_pad = 32768 if m >= 4096 else 16 * k
+        mat, aa_t = draw((m, n_pad), -1), draw((n, n_pad))
+        a, r0, r1 = rd._segment_operand(mat, k, k)
+        op8, p0, p1 = with_threshold(rd, "_SEGMENT_ALIGN", 8,
+                                     lambda: rd._segment_operand(mat, k, k))
+        b, parent = aa_t[:, r0:r1], (op8, aa_t[:, p0:p1])
+        cut = (f"segment [{k}, {2 * k}) of {n_pad} rows: columns "
+               f"[{r0}, {r1}), the parent's [{p0}, {p1})")
+        out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    elif form == "sym":
+        hot = draw((m + n, k))
+        a, b = hot[m:2 * m], hot[m:]
+        match = torch.zeros((m + n, m + n), dtype=torch.int32, device=dev)
+        out, cut = match[m:2 * m, m:], f"rows [{m}, {2 * m}) of {m + n}"
+    else:
+        kp = -(-k // 16) * 16
+        a, b = draw((m, kp))[:, :k], draw((n, kp))[:, :k]
+        out = torch.randint(-99, 99, (m, -(-n // 4) * 4), device=dev,
+                            dtype=torch.int32, generator=g)[:, :n]
+        cut = "contiguous"
+    return a, b, out, parent, cut
+
+
+def fit_launches_of(case, shapes):
+    """The products of a fit (``shapes``: (m, n, k, accumulate) -> calls,
+    from :func:`gemm_fit_bits`) at a phase 30 case's shape: m, n and the
+    form alike, and k too unless B is a class segment, whose length
+    varies with the class."""
+    _, m, n, k, acc, form = case
+    return sum(c for (mm, nn, kk, aa), c in shapes.items()
+               if (mm, nn, aa) == (m, n, acc)
+               and (form == "segment" or kk == k))
+
+
+def gemm_fit_bits(dev, n, p, seed=30):
+    """MultiSURF's discrete engine on (n, p) int8 codes on the card (the
+    resident route) through the kernel, and again as the parent computed
+    it: every product on ``torch._int_mm``, an int32 add of each pass-1
+    window of the parent's width, sizes and segments rounded to 8.  Checks
+    the scores equal bit for bit and the kernel's launches; returns
+    (kernel s, parent s, launches, the kernel fit's products by (m, n, k,
+    accumulate))."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    codes = torch.randint(0, 3, (n, p), dtype=torch.int8, device=dev,
+                          generator=g)
+    y = np.random.RandomState(seed).permutation(np.arange(n) % 2)
+    layout, ti, ft = rd._tiles_and_layout(n, p, 3, y, "multisurf", None,
+                                          dev)
+    n_pad, p_pad = layout[4], -(-p // ft) * ft
+    windows = -(-p_pad // rd.pass1_width(n_pad, 3, ft, ti))
+    want_launches = n_pad // ti * (windows + 2 * (p_pad // ft))
+
+    def fit():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = rd.relief_discrete_scores(None, y, codes=codes,
+                                           algo="multisurf", n_states=3)
+        torch.cuda.synchronize()
+        return scores, time.perf_counter() - t0
+
+    def parent_gemm(a, b, out, *, accumulate=False):
+        return rd.int8_gemm_ref(a, b, out, accumulate=accumulate)
+
+    def parent_width(n_rows, n_states, ft, ti):
+        return ft * max(1, rd._PASS1_ONEHOT_BYTES // (n_rows * n_states * ft))
+    kernel, shapes = rd.int8_gemm, collections.Counter()
+
+    def counted_gemm(a, b, out, *, accumulate=False):
+        shapes[(a.shape[0], b.shape[0], a.shape[1], accumulate)] += 1
+        return kernel(a, b, out, accumulate=accumulate)
+    before = launch_counts(("int8_gemm",))
+    rd.int8_gemm = counted_gemm
+    try:
+        got, kernel_s = fit()
+    finally:
+        rd.int8_gemm = kernel
+    launches = launches_since(before)["int8_gemm"]
+    saved = rd.int8_gemm, rd.pass1_width
+    rd.int8_gemm, rd.pass1_width = parent_gemm, parent_width
+    try:
+        ref, parent_s = with_threshold(
+            rd, "_GEMM_ALIGN", 8,
+            lambda: with_threshold(rd, "_SEGMENT_ALIGN", 8, fit))
+    finally:
+        rd.int8_gemm, rd.pass1_width = saved
+    check(np.array_equal(got.view(np.int32), ref.view(np.int32)),
+          f"gemm: the {n} x {p} fit's scores differ from the parent's "
+          f"arithmetic in {int((got != ref).sum())} features")
+    check(sum(shapes.values()) == want_launches
+          and (dev.type != "cuda" or launches == want_launches),
+          f"gemm: {sum(shapes.values())} products and {launches} int8_gemm "
+          f"launches a {n} x {p} fit, {want_launches} expected")
+    del codes
+    return kernel_s, parent_s, launches, dict(shapes)
+
+
+def gemm_phase(dev, cases=GEMM_CASES, fit=GEMM_FIT):
+    """Phase 30: the discrete engine's int8 GEMM (``csrc/int8_gemm.cu``)
+    against ``torch._int_mm`` on the card, bit for bit, at the engine's
+    shapes (``GEMM_CASES``): pass 1's window added into counts that are
+    not zero, pass 2's class segment starting off 128 in B rows 32,768
+    bytes apart, a v2-sym block row written into its match matrix, a
+    ragged small shape; each timed (CUDA events, mean of 10) beside its
+    twin (``torch._int_mm``, and the int32 add for pass 1), ``_int_mm``
+    alone at the parent's operands (``library_ms``; for the segment also
+    at the kernel's 128-byte aligned cut, ``library_aligned_ms``) and its
+    bound (2 m n k at the int8 peak).  Then a fit at ``fit`` (n, p),
+    snp-paper's size, through the kernel and as the parent computed it
+    (``gemm_fit_bits``): the scores bit for bit, and each case's
+    launches in it (``launches_a_fit``, :func:`fit_launches_of`).
+    Returns (max |error|, timed rows, the fit's numbers)."""
+    t0 = time.perf_counter()
+    rows = []
+    for i, (label, m, n, k, acc, form) in enumerate(cases):
+        a, b, out, parent, cut = gemm_operands(dev, m, n, k, form, 30 + i)
+        c0 = out.clone()
+        got = rd.int8_gemm(a, b, out, accumulate=acc)
+        want = exact_product(a, b) + (c0 if acc else 0)
+        max_err = int((got.long() - want.long()).abs().max())
+        check(max_err == 0, f"int8_gemm {label}: differs from the exact "
+              f"product by up to {max_err}")
+        if parent is not None:
+            check(torch.equal(got, exact_product(*parent)),
+                  f"int8_gemm {label}: differs from the parent's product")
+        kk = a.shape[1]
+        ops = 2.0 * m * n * kk
+        ms = cuda_ms(lambda: rd.int8_gemm(a, b, out, accumulate=acc), 10)
+        ok_mm = m > 16 and kk % 8 == 0 and n % 8 == 0
+        plain_ms = cuda_ms(lambda: rd.int8_gemm_ref(
+            a, b, out, accumulate=acc), 10) if ok_mm else None
+        pa, pb = parent or (a, b)
+        library_ms = cuda_ms(lambda: torch._int_mm(
+            pa.contiguous(), pb.t()), 10) if ok_mm else None
+        aligned_ms = cuda_ms(lambda: torch._int_mm(a, b.t()), 10) if (
+            parent is not None) else None
+        bound = ops / (INT8_PEAK_TOPS * 1e12) * 1e3
+        rows.append(dict(
+            shape=f"{label}: {m} x {n} x {kk}"
+                  f"{', accumulating' if acc else ''}, B {cut}",
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            library_aligned_ms=aligned_ms, bound_ms=bound,
+            bound_by="operations", share=bound / ms,
+            tops=ops / ms / 1e9, max_abs_err=max_err))
+        fmt = lambda v: "-" if v is None else f"{v:.4f}"  # noqa: E731
+        print(f"int8_gemm {rows[-1]['shape']}: equal to _int_mm; kernel "
+              f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s, "
+              f"{100 * bound / ms:.1f}% of {INT8_PEAK_TOPS:.0f}), twin "
+              f"{fmt(plain_ms)} ms, library_ms {fmt(library_ms)} "
+              f"(_int_mm at the parent's operands), library_aligned_ms "
+              f"{fmt(aligned_ms)}, bound {bound:.4f} ms", flush=True)
+        del a, b, out, parent, c0, got, want
+        torch.cuda.empty_cache()
+    kernel_s, parent_s, launches, shapes = gemm_fit_bits(dev, *fit)
+    for case, row in zip(cases, rows):
+        row["launches_a_fit"] = fit_launches_of(case, shapes)
+    print(f"int8_gemm fit {fit[0]} x {fit[1]} (v2 resident, MultiSURF): "
+          f"scores equal the parent's arithmetic bit for bit; kernel "
+          f"{kernel_s:.4f} s ({launches} launches; at each case's shape "
+          f"{[row['launches_a_fit'] for row in rows]}; by (m, n, k, "
+          f"accumulate) {shapes}), parent's products {parent_s:.4f} s; "
+          f"phase {time.perf_counter() - t0:.2f} s on {SMI}", flush=True)
+    return ({"int8_gemm": max(row["max_abs_err"] for row in rows)},
+            {"int8_gemm": rows},
+            dict(kernel_s=kernel_s, parent_s=parent_s, launches=launches))
 
 
 # ---------------------------------------------------------------------------
@@ -3933,6 +4183,9 @@ def main():
     timing = kernel_timing(dev, err)
     # 27. the discrete engine's window kernels against their twins, timed
     window_err, window_timing = window_phase(dev)
+    # 30. the discrete engine's int8 GEMM against torch._int_mm, timed,
+    # and a snp-paper-size fit against the parent's arithmetic
+    gemm_err, gemm_timing, gemm_fit = gemm_phase(dev)
 
     # 4-6. the main path
     main0 = launch_counts()
@@ -4219,6 +4472,23 @@ def main():
          "registers": [regs for _, regs, _ in ptxas[name]],
          "spill_bytes": [spill for _, _, spill in ptxas[name]]}
         for name, (src, rep) in RULE_KERNELS.items()]
+    # the int8 GEMM's launches on the discrete main path: the window
+    # kernels' phases and the mesh layouts (phase 21's first mesh)
+    gemm_launches = {**window_launches, **MESH_GEMM_LAUNCHES}
+    summary["kernels"] += [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": head["window_launches"][name],
+         "max_abs_err": gemm_err[name],
+         "fit_launches": gemm_fit["launches"],
+         "phase_launches": {label: counts[name] for label, counts
+                            in gemm_launches.items()},
+         **{k: gemm_timing[name][0][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "shape": gemm_timing[name][0]["shape"],
+         "shapes": gemm_timing[name],
+         "registers": [regs for _, regs, _ in ptxas[name]],
+         "spill_bytes": [spill for _, _, spill in ptxas[name]]}
+        for name, (src, rep) in GEMM_KERNELS.items()]
     print(f"fits: large-n {fit_n:.4f} s, large-p {fit_p:.4f} s, mixed "
           f"{fit_m:.4f} s, mixed-fused {fit_mf:.4f} s, mixed-xl "
           f"{fit_xl:.4f} s (warm {', '.join(f'{t:.4f}' for t in warm_xl)} "

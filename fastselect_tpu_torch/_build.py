@@ -73,6 +73,8 @@ _SIGNATURES = {
     # d, dbl, lab, yi, iid, vi, shift, thr, coef, w, rows, n, stream
     "fs_threshold_weights": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _P),
+    # a, lda, b, ldb, c, ldc, m, n, k, accumulate, stream
+    "fs_int8_gemm": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

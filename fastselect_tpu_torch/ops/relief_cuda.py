@@ -43,8 +43,8 @@ from .. import _build
 from ..utils.logging import count, phase, span
 from .relief import relief_engine_core
 
-# Samples pad to 64 rows, which meets the hybrid engine's int8 GEMMs (more
-# than 16 rows, multiples of 8; the kernels mask ragged rows themselves),
+# Samples pad to 64 rows, which meets the hybrid engine's int8 GEMMs
+# (multiples of 16; the kernels mask ragged rows themselves),
 # features to the kernels' 16-byte vector width; padded rows and features
 # weigh nothing.
 TILE_ROWS = 64

@@ -14,14 +14,19 @@ products of 0/1 one-hot matrices:
                        - sum_ck (A_c * (M_k @ A_c) * r_k).sum(i)
 
 Every operand is 0/1 (or -1/0/1), so int8 x int8 -> int32 is exact and D
-holds exact integer mismatch counts.  The products go to ``torch._int_mm``
-(cuBLASLt on CUDA), as the JAX package left them to XLA's ``dot_general``:
-no Pallas kernel is involved.  On CUDA that GEMM takes a row-major A with
-more than 16 rows and a contraction length and output width that are
-multiples of 8; the engine pads to those rules (:func:`_gemm_size`,
-:func:`_segment_operand`) and never falls back to a float product: a
-shape the GEMM refuses raises.  ``gemm_ops`` counts 2*m*k*n for every
-product, as ``_build.launches`` counts kernel launches.
+holds exact integer mismatch counts.  Every product goes to
+:func:`int8_gemm`, ``C = A B^T`` or ``C += A B^T`` with the contraction
+axis contiguous in both operands: on CUDA the hand-written Hopper kernel
+of ``csrc/int8_gemm.cu`` (TMA loads, ``wgmma``), which adds each pass-1
+window's product into the match counts in place; on the CPU its plain
+twin, ``torch._int_mm``.  The JAX package leaves these products to XLA's
+``dot_general``: no Pallas kernel is involved.  The kernel reads its
+operands through TMA, whose bases and row strides are 16-byte aligned;
+the engine pads windows to multiples of 16 (:func:`_gemm_size`) and cuts
+class segments on 128-byte boundaries (:func:`_segment_operand`), and
+never falls back to a float product: an operand the kernel refuses
+raises.  ``gemm_ops`` counts 2*m*k*n for every product, as
+``_build.launches`` counts kernel launches.
 
 Three tiers, chosen as in the JAX package and by the same gates:
 
@@ -78,10 +83,16 @@ from .relief import pair_weight_rules
 
 _DOT_DTYPE = torch.int8
 _ACC_DTYPE = torch.int32
-# torch._int_mm on CUDA: A needs more than 16 rows, and the contraction
-# length and output width must be multiples of 8.
-_CUDA_MIN_ROWS = 32
-_GEMM_ALIGN = 8
+# On CUDA: focal blocks and windows padded to multiples of 16, so that
+# every base and row stride of the int8 GEMM's operands is 16-byte
+# aligned, as its TMA loads need (a row count is free: TMA fills rows past
+# m with zeros and drops them on store).
+_GEMM_ALIGN = 16
+# pass 2's class segments start and end on 128-byte boundaries, so the
+# GEMM reads whole 128-byte rows of both operands: on an H100 a segment of
+# the transposed one-hot starting 16 bytes past one ran at half the rate
+# (793 against 1,748 TOP/s at 4,096 x 3,072 x 15,000)
+_SEGMENT_ALIGN = 128
 
 # 2*m*k*n of every int8 product since the last reset
 gemm_ops = 0
@@ -97,7 +108,8 @@ def _round_up(v: int, m: int) -> int:
 
 
 def _dot(a, b, out=None):
-    """a @ b, int8 x int8 -> exact int32 (into ``out`` if given)."""
+    """a @ b, int8 x int8 -> exact int32 (into ``out`` if given), on
+    ``torch._int_mm``: the contingency tables' and MDR's products."""
     global gemm_ops
     out = torch._int_mm(a, b) if out is None else torch._int_mm(a, b,
                                                                 out=out)
@@ -107,13 +119,80 @@ def _dot(a, b, out=None):
 
 def _dot_t(a, b, out=None):
     """a @ b.T for row-major a (m, k) and b (n, k): b.T is the
-    column-major (k, n) operand, which the GEMM reads without a copy.
-
-    Every product of the engine takes this layout, with the contraction
-    axis contiguous in both operands: on an H100 cuBLASLt ran a
-    4096x8192x6144 int8 product at 959 TOP/s this way and at 129 TOP/s
-    with a row-major B."""
+    column-major (k, n) operand, which the GEMM reads without a copy (on
+    an H100 cuBLASLt ran a 4096x8192x6144 int8 product at 959 TOP/s this
+    way and at 129 TOP/s with a row-major B)."""
     return _dot(a, b.t(), out)
+
+
+# ---------------------------------------------------------------------------
+# The engine's int8 GEMM (csrc/int8_gemm.cu) and its plain twin
+# ---------------------------------------------------------------------------
+
+def _check_gemm(a, b, out, aligned: bool) -> None:
+    """Raise unless int8 ``a`` (m, k) and ``b`` (n, k) and int32 ``out``
+    (m, n) on one device have unit column strides; with ``aligned`` (the
+    kernel's rule on CUDA) also unless every base and row stride, and a
+    row of ``out``, is a multiple of 16 bytes (TMA stores whole 16-byte
+    pieces of a row)."""
+    if a.dtype != _DOT_DTYPE or b.dtype != _DOT_DTYPE:
+        raise TypeError(f"int8_gemm takes int8 operands, got {a.dtype} "
+                        f"and {b.dtype}")
+    if out.dtype != _ACC_DTYPE:
+        raise TypeError(f"int8_gemm writes int32, got {out.dtype}")
+    if a.dim() != 2 or b.dim() != 2 or out.dim() != 2:
+        raise ValueError("int8_gemm takes 2-d tensors")
+    (m, k), n = a.shape, b.shape[0]
+    if b.shape[1] != k or tuple(out.shape) != (m, n) or 0 in (m, n, k):
+        raise ValueError(f"int8_gemm: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)} and out {tuple(out.shape)} do "
+                         f"not make a non-empty a @ b.T")
+    if a.device != b.device or a.device != out.device:
+        raise ValueError("int8_gemm's tensors must share a device")
+    if ((a.stride(1) != 1 and k > 1) or (b.stride(1) != 1 and k > 1)
+            or (out.stride(1) != 1 and n > 1)):
+        raise ValueError("int8_gemm's operands must be contiguous along K "
+                         "and its output along its columns")
+    if aligned:
+        bases = (a.data_ptr(), b.data_ptr(), out.data_ptr())
+        strides = (a.stride(0), b.stride(0), 4 * out.stride(0), 4 * n)
+        if any(v % 16 for v in bases + strides):
+            raise ValueError(f"int8_gemm on {a.device} needs 16-byte "
+                             f"aligned bases, row strides and output rows, "
+                             f"got bases {[v % 16 for v in bases]} past 16, "
+                             f"row strides of {list(strides[:3])} bytes and "
+                             f"output rows of {4 * n}")
+
+
+def int8_gemm_ref(a, b, out, *, accumulate=False):
+    """Plain version of :func:`int8_gemm`: ``torch._int_mm`` and, for the
+    accumulating form, an int32 add."""
+    prod = torch._int_mm(a, b.t())
+    return out.add_(prod) if accumulate else out.copy_(prod)
+
+
+def int8_gemm(a, b, out, *, accumulate=False):
+    """``out = a @ b.T``, or with ``accumulate`` ``out += a @ b.T``: int8
+    ``a`` (m, k) and ``b`` (n, k) into int32 ``out`` (m, n), exact.
+
+    Both operands are contiguous along K (``b``'s rows may lie further
+    apart, as a column slice of a wider matrix), ``out`` along its columns
+    (its rows may lie further apart).  On CUDA the kernel of
+    ``csrc/int8_gemm.cu`` computes it, which also needs every base and row
+    stride 16-byte aligned and n a multiple of 4, or the call raises; on
+    the CPU :func:`int8_gemm_ref`.  ``gemm_ops`` counts 2*m*k*n."""
+    global gemm_ops
+    cuda = a.device.type == "cuda"
+    _check_gemm(a, b, out, aligned=cuda)
+    (m, k), n = a.shape, b.shape[0]
+    if cuda:
+        _build.launch("int8_gemm", a.device, a.data_ptr(), a.stride(0),
+                      b.data_ptr(), b.stride(0), out.data_ptr(),
+                      out.stride(0), m, n, k, int(accumulate))
+    else:
+        int8_gemm_ref(a, b, out, accumulate=accumulate)
+    gemm_ops += 2 * m * k * n
+    return out
 
 
 def _onehot(codes, states, shape):
@@ -601,22 +680,29 @@ def window_partials(prods, coeffs, ci, off, w, n_states, total_w, bits=0,
 
 # Pass 1 takes as many feature tiles a window as keep the one-hot of all
 # its rows under this many bytes: match counts are exact int32 sums over
-# features, so the width moves no bit, and each window adds its (TI, rows)
-# product into the counts once.
+# features, so the width moves no bit, and each window's product is added
+# into the counts in place, a read and a write of them a window.
 _PASS1_ONEHOT_BYTES = 1 << 28
 
 
-def pass1_width(n_rows: int, n_states: int, ft: int) -> int:
-    """Features a window of :func:`_match_rows` over ``n_rows`` rows: as
-    many ``ft``-feature tiles as keep its one-hot under
-    ``_PASS1_ONEHOT_BYTES``, at least one."""
-    return ft * max(1, _PASS1_ONEHOT_BYTES // max(1, n_rows * n_states * ft))
+def pass1_width(n_rows: int, n_states: int, ft: int, ti: int) -> int:
+    """Features a window of :func:`_match_rows` over ``n_rows`` rows
+    against ``ti`` focal rows: as many ``ft``-feature tiles as keep its
+    one-hot under ``_PASS1_ONEHOT_BYTES``, at least one, and as many more
+    as the bytes of a (ti, n_rows) int32 product buy of both one-hots.
+    :func:`int8_gemm` adds each window into the counts in place, so the
+    window's one-hots and the counts take no more bytes than a window of
+    the first rule alone with its own product beside the counts."""
+    tile = n_states * ft
+    return ft * (max(1, _PASS1_ONEHOT_BYTES // max(1, n_rows * tile))
+                 + 4 * ti * n_rows // ((ti + n_rows) * tile))
 
 
 def _match_rows(ci, codes_a, ft, n_states, bits=0, rows=None):
     """Pass 1: exact match counts (TI, rows), one (TI, S*w) x (rows, S*w)^T
     product per window of a whole number of ``ft``-feature tiles (the
-    last one narrower on a ragged feature axis).
+    last one narrower on a ragged feature axis), each added into the
+    counts by :func:`int8_gemm`.
 
     ``ci`` and ``codes_a`` are int8 codes, or both packed (``bits``; ``ft``
     whole bytes); ``rows`` picks and orders ``codes_a``'s rows.  The
@@ -625,13 +711,14 @@ def _match_rows(ci, codes_a, ft, n_states, bits=0, rows=None):
     """
     p_raw = _unpacked_width(codes_a, bits)
     n_rows = codes_a.shape[0] if rows is None else rows.shape[0]
-    fw = pass1_width(n_rows, n_states, ft)
+    fw = pass1_width(n_rows, n_states, ft, ci.shape[0])
     acc = torch.zeros((ci.shape[0], n_rows), dtype=_ACC_DTYPE,
                       device=ci.device)
     for off in range(0, p_raw, fw):
         w = min(fw, p_raw - off)
-        acc += _dot_t(window_onehot(ci, off, w, n_states, bits),
-                      window_onehot(codes_a, off, w, n_states, bits, rows))
+        int8_gemm(window_onehot(ci, off, w, n_states, bits),
+                  window_onehot(codes_a, off, w, n_states, bits, rows), acc,
+                  accumulate=True)
     return acc
 
 
@@ -667,7 +754,7 @@ def _accumulate_discrete(ci, codes_a, rules, ft, n_states,
         aa_t = window_onehot(codes_a, f0, w, n_states, transpose=True)
         prods = epilogue.products(w)
         for m, (q,) in zip(masks, prods):
-            _dot_t(m, aa_t, out=q)
+            int8_gemm(m, aa_t, q)
         epilogue(prods, f0, w, out=parts[f0:f0 + w])
     return parts
 
@@ -726,13 +813,12 @@ def _discrete_tile_sizes(n: int, p: int, n_states: int):
     return ti, ft
 
 
-def _gemm_size(v: int, device: torch.device, minimum: int = 1) -> int:
-    """A tile size the GEMM takes on ``device``: on CUDA at least
-    ``minimum`` and a multiple of 8 (padded rows and features weigh
-    nothing); on the CPU, as given."""
+def _gemm_size(v: int, device: torch.device) -> int:
+    """A tile size the GEMM takes on ``device``: on CUDA a multiple of 16
+    (padded rows and features weigh nothing); on the CPU, as given."""
     if device.type != "cuda":
         return v
-    return _round_up(max(v, minimum), _GEMM_ALIGN)
+    return _round_up(v, _GEMM_ALIGN)
 
 
 def pack_discrete(codes, y, n_states: int = 2, ti: int | None = None,
@@ -889,13 +975,15 @@ def _plan_operand(spec, rules, use_star):
 def _segment_operand(mat, s0, sl):
     """``mat``'s columns [s0, s0 + sl) as a GEMM operand: ``(op, r0, r1)``.
 
-    ``op`` spans [r0, r1), the segment rounded out to multiples of 8, and
-    is zero outside the segment, so the product with one-hot rows
-    [r0, r1) has a contraction length the GEMM takes and adds nothing
-    from the neighbouring segments: the segment itself stays exact.
+    ``op`` spans [r0, r1), the segment rounded out to multiples of
+    ``_SEGMENT_ALIGN`` (or to the end of ``mat``), and is zero outside the
+    segment, so the product with one-hot rows [r0, r1) starts both
+    operands on 128-byte boundaries, as the GEMM reads them fastest, and
+    adds nothing from the neighbouring segments: the segment itself stays
+    exact.
     """
-    r0 = s0 // _GEMM_ALIGN * _GEMM_ALIGN
-    r1 = min(_round_up(s0 + sl, _GEMM_ALIGN), mat.shape[1])
+    r0 = s0 // _SEGMENT_ALIGN * _SEGMENT_ALIGN
+    r1 = min(_round_up(s0 + sl, _SEGMENT_ALIGN), mat.shape[1])
     op = torch.zeros((mat.shape[0], r1 - r0), dtype=_DOT_DTYPE,
                      device=mat.device)
     op[:, s0 - r0:s0 - r0 + sl] = mat[:, s0:s0 + sl]
@@ -952,7 +1040,7 @@ def _accumulate_plan(ci, codes_a, rules, plan, segs_all, ft, n_states,
         prods = epilogue.products(w)
         for (seg_ops, _), seg_prods in zip(operands, prods):
             for (op, r0, r1), q in zip(seg_ops, seg_prods):
-                _dot_t(op, aa_t[:, r0:r1], out=q)
+                int8_gemm(op, aa_t[:, r0:r1], q)
         epilogue(prods, f0, w, out=parts[f0:f0 + w])
     return parts
 
@@ -1008,15 +1096,14 @@ def _match_matrix_sym(onehot_a, ti):
     """Full (n_pad, n_pad) int32 match-count matrix from the upper block
     triangle only: match is symmetric, so block (bj, bi) is the transpose
     of (bi, bj).  Match counts sum over features, so each block row is one
-    product over the whole one-hot width."""
+    product over the whole one-hot width, written in place."""
     n_pad = onehot_a.shape[0]
     M = torch.empty((n_pad, n_pad), dtype=_ACC_DTYPE,
                     device=onehot_a.device)
     for b0 in range(0, n_pad, ti):
         b1 = b0 + ti
-        row = _dot_t(onehot_a[b0:b1], onehot_a[b0:])   # (ti, n_pad - b0)
-        M[b0:b1, b0:] = row
-        M[b1:, b0:b1] = row[:, ti:].t()
+        int8_gemm(onehot_a[b0:b1], onehot_a[b0:], M[b0:b1, b0:])
+        M[b1:, b0:b1] = M[b0:b1, b1:].t()
     return M
 
 
@@ -1244,7 +1331,7 @@ def _tiles_and_layout(n, p, n_states, y, algo, class_probs, device,
                       ti=None, ft=None):
     """(v2 layout or None, TI, FT) of a fit on ``device``."""
     ti0, ft0 = _discrete_tile_sizes(n, p, n_states)
-    ti = _gemm_size(ti or ti0, device, _CUDA_MIN_ROWS)
+    ti = _gemm_size(ti or ti0, device)
     layout = _v2_layout(np.asarray(y), n, ti, algo, class_probs)
     if ft is None and layout is not None:
         ft = _discrete_tile_sizes(layout[4], p, n_states)[1]

@@ -66,7 +66,7 @@ def hybrid_plan(n: int, p_c: int, p_d: int, n_states: int,
     """Padded shapes and focal block rows of an (n, p_c + p_d) fit.
 
     The sample axis pads to the pass-1 tile (64 rows), which also meets
-    the int8 GEMM's rules (more than 16 rows, multiples of 8)."""
+    the int8 GEMM's rule (multiples of 16)."""
     n_pad = rc._round_up(max(n, 1), rc.TILE_ROWS)
     nb = (n_pad if n <= HYBRID_SQUARE_MAX_N else rc.focal_block_rows(
         n_pad, device, algo, extra_bytes=_EXTRA_BYTES_PER_PAIR))
@@ -114,8 +114,8 @@ def _square_scores(xc, codes_d, yv, valid, recip2, disc2, n_real, cp,
         s_d = torch.zeros(codes_d.shape[1], dtype=torch.float32, device=dev)
         for pos, plan in enumerate(plans):
             s0, sl = segments[pos]
-            # a class's focal rows; on CUDA the GEMM takes more than 16
-            rows = rd._gemm_size(sl, dev, rd._CUDA_MIN_ROWS)
+            # a class's focal rows, padded as the GEMM takes them
+            rows = rd._gemm_size(sl, dev)
             ci = _pad_rows(codes_d[s0:s0 + sl], rows)
             rules_c = [(_pad_rows(m[s0:s0 + sl], rows),
                         _pad_rows(r[s0:s0 + sl], rows)) for m, r in rules]

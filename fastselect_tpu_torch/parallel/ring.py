@@ -119,9 +119,8 @@ def ring_relief_discrete_scores(
     dev0 = home(mesh)
     _, ft = rd._discrete_tile_sizes(max(n // ndev, 1), p, n_states)
     ft = rd._gemm_size(ft, plan_device(mesh))
-    # a block of samples a shard, a GEMM's A on the card (>= 32 rows)
-    nb = rd._gemm_size(_round_up(-(-n // ndev), 8), plan_device(mesh),
-                       rd._CUDA_MIN_ROWS)
+    # a block of samples a shard, padded as the GEMM takes it on the card
+    nb = rd._gemm_size(_round_up(-(-n // ndev), 8), plan_device(mesh))
     n_pad = nb * ndev
     p_pad = _round_up(p, ft)
 

@@ -27,8 +27,9 @@ MESH = [CPU] * 4
 @pytest.fixture
 def cpu_card(monkeypatch):
     """torch.cuda's timers and memory statistics as no-ops, the plain
-    passes and ReliefF's plain rule on the fused engine counted as
-    launches, and the auto-route's size gate lowered."""
+    passes and ReliefF's plain rule on the fused engine and the int8
+    GEMM's twin counted as launches, and the auto-route's size gate
+    lowered."""
     for name in ("synchronize", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, name, lambda *a: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
@@ -53,6 +54,12 @@ def cpu_card(monkeypatch):
             return rule(*b)
         return counted
     monkeypatch.setattr(relief_mod, "weight_rule", counted_rule)
+    gemm = rd.int8_gemm
+
+    def counted_gemm(*a, **k):
+        _build.launches["int8_gemm"] += 1
+        return gemm(*a, **k)
+    monkeypatch.setattr(rd, "int8_gemm", counted_gemm)
 
 
 def test_mesh_large_n_and_mixed_rehearse(cpu_card):
@@ -73,6 +80,7 @@ def test_mesh_large_n_and_mixed_rehearse(cpu_card):
 
 
 def test_mesh_discrete_layouts_rehearse(monkeypatch, cpu_card):
+    monkeypatch.setattr(cs, "MESH_GEMM_LAUNCHES", {})
     X, y = cs.planted_genotypes(0, 64, 4096, 2)        # p >= 4n, 4,096
     single = MultiSURF(n_features_to_select=10).fit(X, y)
     cs.mesh_fit_phase(
@@ -93,6 +101,9 @@ def test_mesh_discrete_layouts_rehearse(monkeypatch, cpu_card):
                       (cs.fit_tol(single), 0.0), warm=0,
                       ring_bytes=X.size - 1)
     assert relief_mod._RING_BYTES == 4 << 30       # restored
+    # each layout's launches of the int8 GEMM, kept for the summary
+    assert set(cs.MESH_GEMM_LAUNCHES) == {"mesh-snp", "mesh-v2", "mesh-ring"}
+    assert all(v["int8_gemm"] > 0 for v in cs.MESH_GEMM_LAUNCHES.values())
 
 
 def test_mesh_route_checks_fail_loudly(cpu_card):
@@ -133,6 +144,7 @@ def test_mesh_procs_rehearse(monkeypatch, cpu_card):
     each layout held to phase 21's result; the collectives in a one-rank
     gloo group.  Every kernel's plain pass is counted in the processes."""
     monkeypatch.setattr(cs, "MESH_RESULTS", {})
+    monkeypatch.setattr(cs, "MESH_GEMM_LAUNCHES", {})
     monkeypatch.setattr(rd, "_V2_MIN_N", 16)
     monkeypatch.setattr(mdr_mod, "_COMBO_CHUNK", 64)
     make = lambda: MultiSURF(n_features_to_select=10)  # noqa: E731

@@ -44,8 +44,8 @@ COUNTS = {2: (40, 56), 3: (40, 20, 36)}
 
 def _card_sizes(monkeypatch):
     """Windows widened to the card's GEMM sizes (multiples of 8)."""
-    monkeypatch.setattr(TD, "_gemm_size", lambda v, device, minimum=1:
-                        TD._round_up(max(v, minimum), 8))
+    monkeypatch.setattr(TD, "_gemm_size", lambda v, device:
+                        TD._round_up(v, 8))
 
 
 def _pack(codes, bits):
@@ -175,11 +175,22 @@ def test_match_rows_windows_equal_jax(bits, s, window_bytes, monkeypatch,
 
 
 def test_pass1_width_at_the_card_windows():
-    """Pass 1's window at gwas-gather (8,192 rows, FT 1,024) is ten tiles,
-    at the headline's rows (16,384, FT 2,048) two, and never under one."""
-    assert TD.pass1_width(8192, 3, 1024) == 10240
-    assert TD.pass1_width(16384, 3, 2048) == 4096
-    assert TD.pass1_width(1 << 30, 3, 16) == 16
+    """Pass 1's window against 4,096 focal rows at gwas-gather (8,192
+    rows, FT 1,024) is thirteen tiles, at the headline's rows (16,384, FT
+    2,048) four, at snp-paper's (32,768, FT 1,024) six, and never under
+    one; its two one-hots and the counts never take more bytes than a
+    window of ``_PASS1_ONEHOT_BYTES`` alone with its own int32 product
+    beside the counts."""
+    assert TD.pass1_width(8192, 3, 1024, 4096) == 13312
+    assert TD.pass1_width(16384, 3, 2048, 4096) == 8192
+    assert TD.pass1_width(32768, 3, 1024, 4096) == 6144
+    assert TD.pass1_width(1 << 30, 3, 16, 8) == 16
+    for n, s, ft, ti in [(8192, 3, 1024, 4096), (16384, 3, 2048, 4096),
+                         (32768, 3, 1024, 4096), (32768, 5, 1024, 4096),
+                         (300, 3, 128, 48), (4096, 2, 2048, 4096)]:
+        held = ft * max(1, TD._PASS1_ONEHOT_BYTES // (n * s * ft))
+        live = (ti + n) * s * TD.pass1_width(n, s, ft, ti) + 4 * ti * n
+        assert live <= (ti + n) * s * held + 8 * ti * n, (n, s, ft, ti)
 
 
 def test_partials_plan_covers_the_rows():
@@ -539,7 +550,7 @@ def test_window_phase_rehearse(monkeypatch):
         fn()
         return (time.perf_counter() - t0) * 1e3
     monkeypatch.setattr(cs, "cuda_ms", host_ms)
-    # pass 1's windows: one tile at the headline's rows, five at gwas's
+    # pass 1's windows: three tiles at the headline's rows, eight at gwas's
     monkeypatch.setattr(TD, "_PASS1_ONEHOT_BYTES", 1 << 17)
     before = dict(_build.launches)
     seen = []
@@ -556,9 +567,9 @@ def test_window_phase_rehearse(monkeypatch):
     assert err == {"window_onehot": 0.0, "window_partials": 0.0}
     assert [len(timing[k]) for k in cs.WINDOW_KERNELS] == [8, 2]
     shapes = [row["shape"] for row in timing["window_onehot"]]
-    assert "pass 1 window, 512 rows x 64" in shapes[2]
-    assert "pass 1 window, 256 rows x 160" in shapes[6]
-    assert "pass 1 window, 128 focal rows x 160" in shapes[7]
+    assert "pass 1 window, 512 rows x 192" in shapes[2]
+    assert "pass 1 window, 256 rows x 256" in shapes[6]
+    assert "pass 1 window, 128 focal rows x 256" in shapes[7]
     for row in timing["window_partials"]:
         assert row["eager_ms"] > 0 and row["bound_by"] == "bytes"
         assert "class 0, 2 products" in row["shape"]

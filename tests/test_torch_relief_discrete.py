@@ -207,13 +207,13 @@ def test_tiers_of_the_card_shapes(shape, algo, ncls, tier):
 
 def test_gemm_sizes_on_cuda():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert TD._gemm_size(8, cuda, TD._CUDA_MIN_ROWS) == 32
-    assert TD._gemm_size(44, cuda, TD._CUDA_MIN_ROWS) == 48
+    assert TD._gemm_size(8, cuda) == 16
+    assert TD._gemm_size(44, cuda) == 48
     assert TD._gemm_size(12, cuda) == 16
     assert TD._gemm_size(12, cpu) == 12
     y = np.arange(10) % 2
     layout, ti, ft = TD._tiles_and_layout(10, 5, 2, y, "surf", None, cuda)
-    assert (layout, ti, ft) == (None, 32, 128)
+    assert (layout, ti, ft) == (None, 16, 128)
 
 
 def test_scores_from_numpy_tensor_and_float_x(rng):
@@ -257,16 +257,28 @@ def test_segment_padding_equals_int32_matmul(s0, sl, rng):
     assert torch.equal(TD._dot_t(op, aa.t().contiguous()[:, r0:r1]), want)
 
 
-def test_gemm_ops_counts_every_product(rng):
-    """v1, one focal block: pass 1 and one pass-2 product per rule and
-    feature tile, each (ti, S*ft) x n_pad."""
+def test_gemm_ops_counts_every_product(monkeypatch, rng):
+    """v1, one focal block at the card's GEMM sizes: pass 1 and one pass-2
+    product per rule and feature tile, each (ti, S*ft) x n_pad, all through
+    the int8 GEMM and held to its kernel's rules on the card (K contiguous
+    in both operands, 16-byte aligned bases and row strides)."""
+    monkeypatch.setattr(TD, "_gemm_size", lambda v, device:
+                        TD._round_up(v, TD._GEMM_ALIGN))
+    gemm = TD.int8_gemm
+    ops = []
+
+    def card_gemm(a, b, out, *, accumulate=False):
+        TD._check_gemm(a, b, out, aligned=True)
+        ops.append(2 * a.shape[0] * a.shape[1] * b.shape[0])
+        return gemm(a, b, out, accumulate=accumulate)
+    monkeypatch.setattr(TD, "int8_gemm", card_gemm)
     codes = _codes(rng, 40, 300)
     y = rng.randint(0, 2, 40)
     TD.reset_gemm_ops()
     TD.relief_discrete_scores(None, y, codes=codes, algo="multisurf",
                               ft=128)
-    ti, n_pad, sft, nf = 40, 40, 3 * 128, 3
-    assert TD.gemm_ops == nf * 3 * (2 * ti * sft * n_pad)
+    ti, n_pad, sft, nf = 48, 48, 3 * 128, 3
+    assert TD.gemm_ops == sum(ops) == nf * 3 * (2 * ti * sft * n_pad)
 
 
 def test_fits_route_by_data(monkeypatch, rng):

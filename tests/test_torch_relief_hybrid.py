@@ -94,13 +94,13 @@ def test_hybrid_matches_jax(path, fixture, algo, star, k, ncls, monkeypatch,
     assert_array_equal(np.argsort(got), np.argsort(ref))
 
 
-def _cuda_gemm_size(v, device, minimum=1):
-    return TD._round_up(max(v, minimum), TD._GEMM_ALIGN)
+def _cuda_gemm_size(v, device):
+    return TD._round_up(v, TD._GEMM_ALIGN)
 
 
 def test_cuda_padding_rules_change_nothing(monkeypatch, rng):
     """The padding a CUDA card's int8 GEMM needs (focal rows of a small
-    class padded to 32, segments rounded to multiples of 8) gives the
+    class padded to 16, segments rounded to multiples of 128) gives the
     scores of the unpadded CPU run, on classes of 7, 13 and 280 rows, up
     to float32 sums over more rows (rtol 1e-6)."""
     _force_path(monkeypatch, "v2")

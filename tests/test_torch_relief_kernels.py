@@ -506,9 +506,9 @@ def _fake_nvcc(monkeypatch, tmp_path, fail=""):
 def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     _build = _fake_nvcc(monkeypatch, tmp_path)
     units = [s.name for s in _build._units()]
-    assert units == ["relief_discrete.cu", "relief_pass1.cu",
-                     "relief_pass2.cu", "relieff_select.cu",
-                     "threshold_rule.cu"]                       # not headers
+    assert units == ["int8_gemm.cu", "relief_discrete.cu",
+                     "relief_pass1.cu", "relief_pass2.cu",
+                     "relieff_select.cu", "threshold_rule.cu"]  # not headers
     lib = _build.build()
     assert lib == _build.library_path() and lib.exists()
     link = lib.read_text().split()

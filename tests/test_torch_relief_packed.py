@@ -123,8 +123,7 @@ def test_match_rows_raw_equal_jax(bits, s, card_sizes, monkeypatch, rng):
     the same counts in that row order."""
     if card_sizes:
         monkeypatch.setattr(TD, "_gemm_size",
-                            lambda v, device, minimum=1:
-                            TD._round_up(max(v, minimum), 8))
+                            lambda v, device: TD._round_up(v, 8))
     n, p, ft = 41, 37, 16
     codes = _codes(rng, n, p, s)
     focal = rng.permutation(n)[:12]
@@ -412,18 +411,20 @@ def cpu_card(monkeypatch):
 def test_gwas_phase_rehearse(cpu_card, monkeypatch):
     """chip_smoke.py's phase 24 at a small size on the CPU, with the gates
     lowered so that each point takes the route it takes on the card, the
-    card's GEMM sizes, and every product held to ``torch._int_mm``'s rules
-    on the card."""
+    card's GEMM sizes, and every product held to the int8 GEMM kernel's
+    rules on the card: K contiguous in both operands, every base and row
+    stride 16-byte aligned."""
     monkeypatch.setattr(TD, "_V2_MIN_N", 1)
-    monkeypatch.setattr(TD, "_gemm_size", lambda v, device, minimum=1:
-                        TD._round_up(max(v, minimum), 8))
-    dot = TD._dot
+    monkeypatch.setattr(TD, "_gemm_size", lambda v, device:
+                        TD._round_up(v, TD._GEMM_ALIGN))
+    gemm = TD.int8_gemm
+    products = []
 
-    def card_dot(a, b, out=None):
-        assert a.shape[0] > 16 and a.shape[1] % 8 == 0
-        assert b.shape[1] % 8 == 0 and b.stride(0) == 1, (a.shape, b.shape)
-        return dot(a, b, out)
-    monkeypatch.setattr(TD, "_dot", card_dot)
+    def card_gemm(a, b, out, *, accumulate=False):
+        TD._check_gemm(a, b, out, aligned=True)
+        products.append(accumulate)
+        return gemm(a, b, out, accumulate=accumulate)
+    monkeypatch.setattr(TD, "int8_gemm", card_gemm)
     rs = np.random.RandomState(0)
     X = rs.randint(0, 3, (300, 2100), dtype=np.int8)
     y = rs.randint(0, 2, 300)
@@ -446,3 +447,4 @@ def test_gwas_phase_rehearse(cpu_card, monkeypatch):
     assert res["gwas-gather"]["err"] <= cs.GWAS_TOL[0]
     assert max(v["err"] for v in res["routes"].values()) <= cs.GWAS_TOL[0]
     assert _build.launches == launched
+    assert True in products and False in products

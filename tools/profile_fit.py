@@ -117,7 +117,8 @@ def phase_data(name):
 RANGES = {"_match_rows": "pass1", "_build_onehot": "pass1.onehot",
           "_match_matrix_sym": "pass1.sym", "_accumulate_plan": "pass2",
           "_accumulate_discrete": "pass2", "_build_onehot_t": "pass2.onehot",
-          "_dot": "gemm", "_onehot_flat": "onehot", "_onehot_flat_t": "onehot",
+          "int8_gemm": "gemm", "_onehot_flat": "onehot",
+          "_onehot_flat_t": "onehot",
           "_gemm_window": "onehot", "window_onehot": "onehot",
           "_tile_part": "epilogue", "window_partials": "epilogue",
           "WindowPartials.__call__": "epilogue",

@@ -2961,8 +2961,9 @@ def relieff_rule_fits(dev, label, make, X, y, must_launch=(), tier=None,
         got = rd.discrete_tier(n, p, 3, y_enc, "relieff", kw["class_probs"],
                                device=dev)
         check(got == tier, f"{label}: tier {got}, expected {tier}")
-        ti = rd._discrete_tile_sizes(n, p, 3)[0]
-        pairs = ti * rd._round_up(n, ti)
+        layout, ti, _ = rd._tiles_and_layout(n, p, 3, y_enc, "relieff",
+                                             kw["class_probs"], dev)
+        pairs = ti * (rd._round_up(n, ti) if layout is None else layout[4])
         shape = f"tier {tier}, ti {ti}"
     before = launch_counts()
     rd.reset_gemm_ops()
@@ -3586,10 +3587,10 @@ def window_phase(dev, windows=WINDOWS):
 # the symmetric tier's one-hot from the block row on, into its match
 # matrix)
 GEMM_CASES = (
-    ("pass 1, snp-paper's window (6 tiles)", 4096, 32768, 18432, True,
+    ("pass 1, snp-paper's window (6 tiles)", 3840, 30720, 18432, True,
      "rows"),
-    ("pass 1 at 2 tiles", 4096, 32768, 6144, True, "rows"),
-    ("pass 2, a class segment", 4096, 3072, 15003, False, "segment"),
+    ("pass 1 at 2 tiles", 3840, 30720, 6144, True, "rows"),
+    ("pass 2, a class segment", 3840, 3072, 15003, False, "segment"),
     ("v2-sym block row (headline)", 4096, 12288, 196608, False, "sym"),
     ("ragged", 48, 204, 80, True, "rows"),
 )
@@ -3618,7 +3619,7 @@ def gemm_operands(dev, m, n, k, form, seed):
                              generator=g)
     parent = None
     if form == "segment":
-        n_pad = 32768 if m >= 4096 else 16 * k
+        n_pad = 30720 if m >= 3840 else 16 * k   # snp-paper's on the card
         mat, aa_t = draw((m, n_pad), -1), draw((n, n_pad))
         a, r0, r1 = rd._segment_operand(mat, k, k)
         op8, p0, p1 = with_threshold(rd, "_SEGMENT_ALIGN", 8,
@@ -3656,7 +3657,8 @@ def gemm_fit_bits(dev, n, p, seed=30):
     """MultiSURF's discrete engine on (n, p) int8 codes on the card (the
     resident route) through the kernel, and again as the parent computed
     it: every product on ``torch._int_mm``, an int32 add of each pass-1
-    window of the parent's width, sizes and segments rounded to 8.  Checks
+    window of the parent's width, pass-2 windows of one tile, sizes and
+    segments rounded to 8.  Checks
     the scores equal bit for bit and the kernel's launches; returns
     (kernel s, parent s, launches, the kernel fit's products by (m, n, k,
     accumulate))."""
@@ -3668,12 +3670,15 @@ def gemm_fit_bits(dev, n, p, seed=30):
                                           dev)
     n_pad, p_pad = layout[4], -(-p // ft) * ft
     windows = -(-p_pad // rd.pass1_width(n_pad, 3, ft, ti))
-    want_launches = n_pad // ti * (windows + 2 * (p_pad // ft))
+    windows2 = -(-p_pad // rd.pass2_width(n_pad, ti, 2, 3, ft, dev))
+    want_launches = n_pad // ti * (windows + 2 * windows2)
 
     def fit():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        scores = rd.relief_discrete_scores(None, y, codes=codes,
+        # ti given: the parent's arithmetic rounds segments to 8, which
+        # would move the card's blocks (whole 128-row lines) and the sums
+        scores = rd.relief_discrete_scores(None, y, codes=codes, ti=ti,
                                            algo="multisurf", n_states=3)
         torch.cuda.synchronize()
         return scores, time.perf_counter() - t0
@@ -3683,6 +3688,9 @@ def gemm_fit_bits(dev, n, p, seed=30):
 
     def parent_width(n_rows, n_states, ft, ti):
         return ft * max(1, rd._PASS1_ONEHOT_BYTES // (n_rows * n_states * ft))
+
+    def parent_width2(n_rows, ti, n_products, n_states, ft, device):
+        return ft
     kernel, shapes = rd.int8_gemm, collections.Counter()
 
     def counted_gemm(a, b, out, *, accumulate=False):
@@ -3695,14 +3703,15 @@ def gemm_fit_bits(dev, n, p, seed=30):
     finally:
         rd.int8_gemm = kernel
     launches = launches_since(before)["int8_gemm"]
-    saved = rd.int8_gemm, rd.pass1_width
+    saved = rd.int8_gemm, rd.pass1_width, rd.pass2_width
     rd.int8_gemm, rd.pass1_width = parent_gemm, parent_width
+    rd.pass2_width = parent_width2
     try:
         ref, parent_s = with_threshold(
             rd, "_GEMM_ALIGN", 8,
             lambda: with_threshold(rd, "_SEGMENT_ALIGN", 8, fit))
     finally:
-        rd.int8_gemm, rd.pass1_width = saved
+        rd.int8_gemm, rd.pass1_width, rd.pass2_width = saved
     check(np.array_equal(got.view(np.int32), ref.view(np.int32)),
           f"gemm: the {n} x {p} fit's scores differ from the parent's "
           f"arithmetic in {int((got != ref).sum())} features")

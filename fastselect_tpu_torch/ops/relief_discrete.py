@@ -26,7 +26,10 @@ the engine pads windows to multiples of 16 (:func:`_gemm_size`) and cuts
 class segments on 128-byte boundaries (:func:`_segment_operand`), and
 never falls back to a float product: an operand the kernel refuses
 raises.  ``gemm_ops`` counts 2*m*k*n for every product, as
-``_build.launches`` counts kernel launches.
+``_build.launches`` counts kernel launches.  On CUDA the focal blocks of
+at least ``_V2_MIN_N`` samples are the fewest of at most the JAX package's
+TI rows that cover them, equal and whole 128-row lines
+(:func:`_block_rows`), where JAX pads n to a multiple of its TI.
 
 Three tiers, chosen as in the JAX package and by the same gates:
 
@@ -70,6 +73,8 @@ a time), and v2 then takes one of two routes (:func:`_v2_route`):
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -698,6 +703,20 @@ def pass1_width(n_rows: int, n_states: int, ft: int, ti: int) -> int:
                  + 4 * ti * n_rows // ((ti + n_rows) * tile))
 
 
+def pass2_width(n_rows: int, ti: int, n_products: int, n_states: int,
+                ft: int, device: torch.device) -> int:
+    """Features a window of :func:`_accumulate_plan` over ``n_rows`` rows
+    against ``ti`` focal rows with ``n_products`` int32 products: on CUDA
+    as many ``ft``-feature tiles as keep the window's transposed one-hot
+    and its products under ``_PASS1_ONEHOT_BYTES``, at least one, so that
+    a short, wide matrix launches fewer windows (5,000 x 500,000: 3
+    tiles, 163 windows a block in place of 489); one tile elsewhere."""
+    if device.type != "cuda":
+        return ft
+    tile = n_states * ft * (n_rows + 4 * n_products * ti)
+    return ft * max(1, _PASS1_ONEHOT_BYTES // tile)
+
+
 def _match_rows(ci, codes_a, ft, n_states, bits=0, rows=None):
     """Pass 1: exact match counts (TI, rows), one (TI, S*w) x (rows, S*w)^T
     product per window of a whole number of ``ft``-feature tiles (the
@@ -821,6 +840,19 @@ def _gemm_size(v: int, device: torch.device) -> int:
     return _round_up(v, _GEMM_ALIGN)
 
 
+def _block_rows(n: int, ti: int, device: torch.device) -> int:
+    """Focal rows a block of a fit of ``n`` samples, from the JAX
+    package's TI ``ti``.  On CUDA from ``_V2_MIN_N`` samples: the fewest
+    blocks of at most ``ti`` rows that cover n, equal and rounded up to
+    ``_SEGMENT_ALIGN`` rows, so that n pads by less than a block (5,000
+    samples: 2 x 2,560, not 2 x 4,096) and every row of pass 2's
+    transposed one-hot (n_pad bytes) starts on a 128-byte line; elsewhere
+    ``ti`` itself."""
+    if device.type != "cuda" or n < _V2_MIN_N:
+        return ti
+    return _round_up(_cdiv(n, _cdiv(n, ti)), _SEGMENT_ALIGN)
+
+
 def pack_discrete(codes, y, n_states: int = 2, ti: int | None = None,
                   ft: int | None = None):
     """Zero-pad codes/y/validity to (TI, FT) multiples, on the codes'
@@ -889,12 +921,15 @@ def _class_sorted_layout(y, ti):
 def _apply_layout(codes, y, perm, n_pad, p_pad):
     """Class-sorted, zero-padded (n_pad, p_pad) copy of ``codes`` on its
     device, with labels (-1 past n) and validity (0 past n) in the same
-    order: one row gather."""
+    order: each row copied straight to its sorted place
+    (``index_copy_``), with no gathered copy of the codes beside them."""
     n, p = codes.shape
     dev = codes.device
     perm_t = torch.as_tensor(perm, device=dev)
+    place = torch.empty_like(perm_t)
+    place[perm_t] = torch.arange(n, device=dev)
     cpad = torch.zeros((n_pad, p_pad), dtype=torch.int8, device=dev)
-    cpad[:n, :p] = codes[perm_t]
+    cpad[:n, :p].index_copy_(0, place, codes)
     return (cpad, *_sorted_labels(y, perm, n_pad, dev))
 
 
@@ -999,8 +1034,9 @@ def _accumulate_plan(ci, codes_a, rules, plan, segs_all, ft, n_states,
     contraction is n_pad across ALL entries (vs rules x n_pad for
     :func:`_accumulate_discrete`).  ``segs_all[pos]`` is (col0, ncols);
     ``onehot_t`` optionally supplies the precomputed transposed one-hot
-    (:func:`_build_onehot_t`).  The operands are cut once, outside the
-    window loop.  ``bits`` and ``rows`` read the windows as
+    (:func:`_build_onehot_t`), one ``ft`` tile a window; without it a
+    window is :func:`pass2_width` features.  The operands are cut once,
+    outside the window loop.  ``bits`` and ``rows`` read the windows as
     :func:`_match_rows` does (the gather route: ``rows`` puts the rows in
     class order, so the segments are the resident layout's; JAX's
     ``_accumulate_plan_gather``), over the packed width when packed.
@@ -1031,9 +1067,12 @@ def _accumulate_plan(ci, codes_a, rules, plan, segs_all, ft, n_states,
                               [coeff for _, coeff in operands], ci,
                               n_states, total_w, bits)
     parts = torch.empty(p_pad, dtype=torch.float32, device=dev)
-    count("windows", _cdiv(p_pad, ft))
-    for t, f0 in enumerate(range(0, p_pad, ft)):
-        w = min(ft, p_pad - f0)
+    fw = (ft if onehot_t is not None
+          else pass2_width(n_pad, ti, sum(epilogue.n_products), n_states,
+                           ft, dev))
+    count("windows", _cdiv(p_pad, fw))
+    for t, f0 in enumerate(range(0, p_pad, fw)):
+        w = min(fw, p_pad - f0)
         aa_t = (window_onehot(codes_a, f0, w, n_states, bits, rows,
                               transpose=True)
                 if onehot_t is None else onehot_t[t])
@@ -1051,9 +1090,13 @@ def _block_scores_v2(ci, yi, vi, iid, codes_a, yv_a, valid_a, n_real,
                      rows=None):
     """Scores (p_pad,) float32 contributed by ONE focal block (v2); with
     ``bits`` and ``rows`` over codes read as :func:`_match_rows` reads
-    them (JAX's ``_relief_discrete_block_v2g``)."""
+    them (JAX's ``_relief_discrete_block_v2g``).  Pass 2 of a block that
+    straddles a class boundary (its plan contracts the full span, the
+    last position of ``segs_all``) is also the span
+    ``discrete.straddle``."""
     count("focal_blocks")
     dev = ci.device
+    straddle = any(len(segs_all) - 1 in segs for _, segs in plan)
     if match is None:
         with span("discrete.pass1", device=dev):
             match = _match_rows(ci, codes_a, ft, n_states, bits, rows)
@@ -1062,7 +1105,9 @@ def _block_scores_v2(ci, yi, vi, iid, codes_a, yv_a, valid_a, n_real,
         rules = pair_weight_rules(
             D, yi, vi, iid, yv_a, valid_a, n_real, class_probs,
             algo=algo, use_star=use_star, k=k)
-    with span("discrete.pass2", device=dev):
+    inner = (span("discrete.straddle", device=dev) if straddle
+             else contextlib.nullcontext())
+    with span("discrete.pass2", device=dev), inner:
         return _accumulate_plan(ci, codes_a, rules, plan, segs_all, ft,
                                 n_states, use_star, onehot_t=onehot_t,
                                 bits=bits, rows=rows)
@@ -1329,9 +1374,10 @@ def _run_v2(codes, y, layout, n, p, n_states, class_probs,
 
 def _tiles_and_layout(n, p, n_states, y, algo, class_probs, device,
                       ti=None, ft=None):
-    """(v2 layout or None, TI, FT) of a fit on ``device``."""
+    """(v2 layout or None, TI, FT) of a fit on ``device``: a ``ti`` given
+    wins, else :func:`_block_rows` of the JAX package's TI."""
     ti0, ft0 = _discrete_tile_sizes(n, p, n_states)
-    ti = _gemm_size(ti or ti0, device)
+    ti = _gemm_size(ti or _block_rows(n, ti0, device), device)
     layout = _v2_layout(np.asarray(y), n, ti, algo, class_probs)
     if ft is None and layout is not None:
         ft = _discrete_tile_sizes(layout[4], p, n_states)[1]
@@ -1388,7 +1434,7 @@ def relief_discrete_scores(
     :class:`PackedCodes` (``n_states`` given), scored on its own device.
     Without codes, X (numpy or tensor) is encoded on ``device`` (default:
     X's own).  ``ti``/``ft`` override the focal-block and feature-tile
-    sizes.
+    sizes.  The counter ``padded_rows`` adds the padded samples, n_pad - n.
     """
     n, p = (x if codes is None else codes).shape
     y = np.asarray(y)
@@ -1426,6 +1472,7 @@ def relief_discrete_scores(
             scores = _run_v2(codes, y, layout, n, p, n_states, class_probs,
                              algo=algo, use_star=use_star,
                              k=int(n_neighbors), ti=ti, ft=ft)
+            count("padded_rows", layout[4] - n)
             return (scores[:p].to(torch.float32) / float(n)).cpu().numpy()
     if isinstance(codes, PackedCodes):
         codes = _codes_window(codes.packed, 0, codes.p_eff, codes.bits)[:, :p]
@@ -1437,6 +1484,7 @@ def relief_discrete_scores(
             torch.as_tensor(np.asarray(class_probs, np.float32), device=dev),
             algo=algo, use_star=use_star, k=int(n_neighbors), ti=ti, ft=ft,
             n_states=n_states)
+        count("padded_rows", cpad.shape[0] - n)
         return (scores[:p].to(torch.float32) / float(n)).cpu().numpy()
 
 

@@ -166,9 +166,10 @@ def test_engines_log_the_v2_phase(monkeypatch, info_log, rng):
         "relief_discrete.engine_v2[multisurf]"]
     # the phase's spans in order of first opening (the symmetric tier:
     # the one-hot, pass 1's match matrix, then each focal block's rules
-    # and pass 2), then the phase itself
+    # and pass 2, the one block straddling both classes), then the phase
     assert names == ["discrete.layout", "discrete.pass1", "weight_rules",
                      "weight_rules.stats", "discrete.pass2",
+                     "discrete.straddle",
                      "relief_discrete.engine_v2[multisurf]"]
 
 

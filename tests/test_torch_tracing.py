@@ -159,8 +159,10 @@ def test_one_record_per_name_with_counts_and_deltas(info_log, monkeypatch,
     assert root.counts["focal_blocks"] == blocks
     assert root.counts["windows"] == blocks * 3   # 384 features / 128
     assert "mine.k1" not in root.counts
+    # 60 rows padded to 64: the engine adds its padded rows after its blocks
+    assert root.counts["padded_rows"] == 4
     assert root.getMessage().endswith(
-        f" focal_blocks={blocks} windows={blocks * 3}")
+        f" focal_blocks={blocks} windows={blocks * 3} padded_rows=4")
     assert not any(hasattr(r, "counts") for r in records if r is not root)
     spans = _spans(records)
     assert len(spans["discrete.pass2"]) == blocks
